@@ -1,0 +1,71 @@
+"""Carrying parameters and state across from the JAX package, as numpy.
+
+Imports no JAX: callers hand over numpy arrays (e.g.
+``jax.tree.map(np.asarray, params)``).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from minigrid_tpu_torch.core.types import EnvState, resolve_device
+from minigrid_tpu_torch.envs.base import LayoutPool, pool_from_states
+
+DENSE_LAYERS = ("img_in", "trunk1", "trunk2", "policy", "value")
+
+
+def actor_critic_from_flax(params_np) -> dict:
+    """Flax ``ActorCritic`` params (the ``model.init`` tree, numpy leaves)
+    -> a ``state_dict`` for ``models.actor_critic.ActorCritic``. Dense
+    kernels are (in, out) in Flax and (out, in) in ``nn.Linear``."""
+    p = params_np.get("params", params_np)
+    sd = {}
+    for name in DENSE_LAYERS:
+        sd[f"{name}.weight"] = torch.tensor(
+            np.asarray(p[name]["kernel"], np.float32).T)
+        sd[f"{name}.bias"] = torch.tensor(
+            np.asarray(p[name]["bias"], np.float32))
+    sd["mission_embed"] = torch.tensor(
+        np.asarray(p["mission_embed"], np.float32))
+    return sd
+
+
+def _field(src, name):
+    return src[name] if isinstance(src, Mapping) else getattr(src, name)
+
+
+def env_state_from_numpy(src, device=None) -> EnvState:
+    """A batched EnvState exported from JAX (an object or mapping with the
+    EnvState fields as numpy-convertible arrays, batch-leading). JAX keys
+    (uint32) keep their bit pattern as int32."""
+    dev = resolve_device(device)
+
+    def t(name, dtype):
+        return torch.as_tensor(np.asarray(_field(src, name)).astype(dtype),
+                               device=dev)
+
+    rng = np.array(_field(src, "rng"))  # a writable copy
+    return EnvState(
+        grid=t("grid", np.uint8),
+        agent_pos=t("agent_pos", np.int32),
+        agent_dir=t("agent_dir", np.int32),
+        carrying=t("carrying", np.uint8),
+        step_count=t("step_count", np.int32),
+        terminated=t("terminated", np.bool_),
+        truncated=t("truncated", np.bool_),
+        mission=t("mission", np.int32),
+        rng=torch.as_tensor(rng.view(np.int32), device=dev),
+    )
+
+
+def layout_pool_from_entries(entries, device=None) -> LayoutPool:
+    """JAX pool entries (``LayoutPool.entry(i)``, one unbatched EnvState
+    each) -> the port's pool with the same rows in the same order."""
+    names = ("grid", "agent_pos", "agent_dir", "carrying", "step_count",
+             "terminated", "truncated", "mission", "rng")
+    stacked = {n: np.stack([np.asarray(_field(e, n)) for e in entries])
+               for n in names}
+    return pool_from_states(env_state_from_numpy(stacked, device))

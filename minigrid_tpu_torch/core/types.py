@@ -1,0 +1,85 @@
+"""Core state/params types, batch-leading.
+
+Counterpart of ``minigrid_tpu/core/types.py``. Where the JAX package keeps one
+episode per pytree and batches with ``vmap``, an :class:`EnvState` here holds a
+whole batch: every field carries a leading ``B`` axis. Field layouts and dtypes
+match the JAX state exactly (grid ``(B, W, H, 5)`` uint8 indexed ``[x, y]``),
+so states cross between the two packages as numpy arrays (see ``convert.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# Fixed token length for tokenized mission strings (the JAX package's value).
+MISSION_LEN = 96
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    card. With no device given and no card present this raises: the port
+    never falls back to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' explicitly to "
+            "run on the CPU")
+    return torch.device("cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvState:
+    """Batched environment state: B episodes, one per leading index."""
+
+    grid: torch.Tensor        # (B, W, H, 5) uint8 — constants.NUM_CHANNELS
+    agent_pos: torch.Tensor   # (B, 2) int32 — (x, y)
+    agent_dir: torch.Tensor   # (B,) int32 — 0..3
+    carrying: torch.Tensor    # (B, 5) uint8 — EMPTY_CELL when empty
+    step_count: torch.Tensor  # (B,) int32
+    terminated: torch.Tensor  # (B,) bool
+    truncated: torch.Tensor   # (B,) bool
+    mission: torch.Tensor     # (B, MISSION_LEN) int32 token ids (0 = pad)
+    rng: torch.Tensor         # (B, 2) int32 — bit pattern of a JAX-style key
+
+    def replace(self, **kw) -> "EnvState":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def batch_size(self) -> int:
+        return self.agent_dir.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.grid.device
+
+    def tensors(self) -> dict:
+        """The fields by name."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    def map(self, fn) -> "EnvState":
+        """Apply ``fn`` to every field (e.g. index or move)."""
+        return self.replace(**{k: fn(v) for k, v in self.tensors().items()})
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvParams:
+    """Static configuration shared by every environment; the same fields
+    and defaults as the JAX package's ``EnvParams``."""
+
+    width: int = 8
+    height: int = 8
+    view_size: int = 7
+    max_steps: int = 100
+    see_through_walls: bool = False
+    # False: {image: (B, V, V, 3) uint8}; True: {packed: (B, V, V) int32},
+    # 9 bits per cell = type | color << 4 | state << 7
+    packed_obs: bool = False
+
+    def __post_init__(self):
+        if self.view_size % 2 != 1 or self.view_size < 3:
+            raise ValueError(f"view_size must be odd and >= 3, got "
+                             f"{self.view_size}")

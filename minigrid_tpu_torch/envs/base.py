@@ -1,0 +1,280 @@
+"""Batched environment base and the pooled auto-reset.
+
+Counterpart of ``minigrid_tpu/envs/base.py``. An env instance is static
+configuration (``params``) plus the device it runs on; all episode data
+lives in a batched :class:`EnvState`. Every function takes and returns
+batch-leading tensors (no ``vmap``), and randomness comes from explicit
+``torch.Generator``\\ s on the env's device::
+
+    obs, state = env.reset(generator, num_envs)
+    obs, state, reward, terminated, truncated, info = env.step(keys, state, a)
+
+``keys`` is the (B, 2) int32 bit pattern of per-env step keys; the core
+dynamics never read it, and the pooled auto-reset derives each reset
+episode's ``rng`` from it exactly as the JAX package does.
+
+On the card, ``step`` and the pooled auto-reset run the fused CUDA kernel
+(``ops/fused_step.py``) for every env without step hooks; on the CPU they
+run its plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.core.mission import tokenize
+from minigrid_tpu_torch.core.obs import gen_obs, packed_to_image
+from minigrid_tpu_torch.core.step import step_core
+from minigrid_tpu_torch.core.types import (MISSION_LEN, EnvParams, EnvState,
+                                           resolve_device)
+from minigrid_tpu_torch.ops.fused_step import (fused_rollout, pack_rows,
+                                               require_core_dynamics,
+                                               unpack_rows)
+
+# The XOR salt that derives a reset episode's rng from its step key
+# (minigrid_tpu/envs/base.py:_apply_broadcast_reset), as int32 bit patterns.
+RESET_RNG_SALT = np.array([0x5DEECE66, 0xB5297A4D], np.uint32).view(np.int32)
+
+
+def random_keys(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniform random int32 bit patterns of ``shape``, e.g. (B, 2) keys."""
+    return torch.randint(-2**31, 2**31, tuple(shape), generator=generator,
+                         device=device, dtype=torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutPool:
+    """Device-resident pool of P pre-generated reset states, in the fused
+    kernel's row format: packed grid (P, W*H) and scalars (P, NSCAL) int32
+    (``ops.fused_step.pack_rows``), plus the mission tokens (P, L) int32.
+    A pool of T rows is also what :func:`presample_reset_states` returns:
+    one broadcast reset row per upcoming step."""
+
+    grid: torch.Tensor
+    scal: torch.Tensor
+    mission: torch.Tensor
+    width: int
+    height: int
+
+    @property
+    def size(self) -> int:
+        return self.grid.shape[0]
+
+    def rows(self, idx) -> "LayoutPool":
+        """The pool restricted to rows ``idx`` (an int keeps one row)."""
+        if isinstance(idx, int):
+            idx = slice(idx, idx + 1)
+        return dataclasses.replace(self, grid=self.grid[idx],
+                                   scal=self.scal[idx],
+                                   mission=self.mission[idx])
+
+    def to(self, device) -> "LayoutPool":
+        return dataclasses.replace(self, grid=self.grid.to(device),
+                                   scal=self.scal.to(device),
+                                   mission=self.mission.to(device))
+
+    def entry(self, i: int) -> EnvState:
+        """Pool entry ``i`` as a batch-of-one EnvState (rng zero)."""
+        row = self.rows(i)
+        core = unpack_rows(row.grid, row.scal, self.width, self.height)
+        return EnvState(**core, mission=row.mission,
+                        rng=torch.zeros((1, 2), dtype=torch.int32,
+                                        device=self.grid.device))
+
+
+def pool_from_states(states: EnvState) -> LayoutPool:
+    """Serialize a batched EnvState into pool rows."""
+    grid, scal = pack_rows(states)
+    return LayoutPool(grid=grid, scal=scal,
+                      mission=states.mission.contiguous(),
+                      width=states.grid.shape[1], height=states.grid.shape[2])
+
+
+def make_layout_pool(env, generator: torch.Generator,
+                     pool_size: int = 1024) -> LayoutPool:
+    """A fresh pool of ``pool_size`` independent reset layouts."""
+    return pool_from_states(env._gen_grid(generator, pool_size))
+
+
+def presample_reset_states(generator: torch.Generator, pool: LayoutPool,
+                           length: int) -> LayoutPool:
+    """``length`` broadcast reset rows drawn uniformly from the pool, one
+    per upcoming rollout step."""
+    idx = torch.randint(0, pool.size, (length,), generator=generator,
+                        device=pool.grid.device)
+    return pool.rows(idx)
+
+
+def draw_pool_row(generator: torch.Generator, pool: LayoutPool) -> LayoutPool:
+    """The broadcast-row pool draw: ONE row for this step."""
+    return presample_reset_states(generator, pool, 1)
+
+
+def _apply_broadcast_reset(keys, st: EnvState, done, reset_row: LayoutPool):
+    """The episode fields of the broadcast reset: finished envs take the
+    row's mission and a fresh rng, ``keys ^ RESET_RNG_SALT``.
+
+    The row's grid and agent fields are selected inside the fused step
+    (kernel or plain version), after the transition and before the one
+    observation, the order of the JAX package's ``_apply_broadcast_reset``;
+    this completes the select on the fields the kernel does not carry."""
+    salt = torch.as_tensor(RESET_RNG_SALT, device=keys.device)
+    d = done[:, None]
+    return st.replace(
+        rng=torch.where(d, keys ^ salt, st.rng),
+        mission=torch.where(d, reset_row.mission, st.mission))
+
+
+def autoreset_step_presampled(env, keys, states: EnvState, actions,
+                              reset_row: LayoutPool):
+    """BATCHED auto-resetting step with this step's broadcast reset row
+    (see :func:`presample_reset_states`): one fused step with the row, then
+    the episode fields. Returns (obs, state, reward, terminated, truncated,
+    info); reward and flags report the finishing step."""
+    require_core_dynamics(env)
+    st, obs, reward, term, trunc = fused_rollout(
+        env.params, states, _actions(actions)[None],
+        reset_grid=reset_row.grid, reset_scal=reset_row.scal)
+    term, trunc = term[0], trunc[0]
+    st = _apply_broadcast_reset(keys, st, term | trunc, reset_row)
+    return env._obs_dict(obs[0], st), st, reward[0], term, trunc, {}
+
+
+def autoreset_step_pooled(env, keys, states: EnvState, actions,
+                          pool: LayoutPool, generator: torch.Generator):
+    """BATCHED auto-resetting step, broadcast-row mode: ONE pool row drawn
+    for this step, and every env finishing on it restarts from that row
+    (per-env marginals stay uniform over the pool)."""
+    return autoreset_step_presampled(env, keys, states, actions,
+                                     draw_pool_row(generator, pool))
+
+
+def _actions(actions) -> torch.Tensor:
+    return torch.as_tensor(actions).to(torch.int32).contiguous()
+
+
+class MiniGridEnv:
+    """Base batched env. Instances are static config (``params``) and the
+    device; all episode data lives in the batched :class:`EnvState`."""
+
+    def __init__(self, params: EnvParams, device=None):
+        self.params = params
+        self.device = resolve_device(device)
+
+    def packed(self) -> "MiniGridEnv":
+        """Copy of this env emitting packed observations."""
+        return self.replace_params(packed_obs=True)
+
+    def replace_params(self, **kw) -> "MiniGridEnv":
+        env = object.__new__(type(self))
+        env.__dict__.update(self.__dict__)
+        env.params = dataclasses.replace(self.params, **kw)
+        return env
+
+    # -- mission ---------------------------------------------------------
+    def default_mission(self) -> str:
+        return "get to the green goal square"
+
+    def mission_tokens(self) -> torch.Tensor:
+        return torch.as_tensor(tokenize(self.default_mission()),
+                               device=self.device)
+
+    # -- construction ----------------------------------------------------
+    def make_state(self, grid, agent_pos, agent_dir, rng,
+                   mission=None) -> EnvState:
+        """A batch of fresh episodes from per-env grids and agent poses."""
+        B = grid.shape[0]
+        dev = grid.device
+        if mission is None:
+            mission = self.mission_tokens().expand(B, MISSION_LEN)
+        return EnvState(
+            grid=grid.contiguous(),
+            agent_pos=torch.as_tensor(agent_pos, device=dev).to(
+                torch.int32).expand(B, 2).contiguous(),
+            agent_dir=torch.as_tensor(agent_dir, device=dev).to(
+                torch.int32).expand(B).contiguous(),
+            carrying=torch.as_tensor(C.EMPTY_CELL, device=dev).expand(
+                B, C.NUM_CHANNELS).contiguous(),
+            step_count=torch.zeros((B,), dtype=torch.int32, device=dev),
+            terminated=torch.zeros((B,), dtype=torch.bool, device=dev),
+            truncated=torch.zeros((B,), dtype=torch.bool, device=dev),
+            mission=mission.contiguous(),
+            rng=rng,
+        )
+
+    def _gen_grid(self, generator: torch.Generator, num_envs: int) -> EnvState:
+        raise NotImplementedError
+
+    # -- API -------------------------------------------------------------
+    def _obs_dict(self, packed: torch.Tensor, state: EnvState) -> dict:
+        view = ({"packed": packed} if self.params.packed_obs
+                else {"image": packed_to_image(packed)})
+        return view | {"direction": state.agent_dir,
+                       "mission": state.mission}
+
+    def reset(self, generator: torch.Generator, num_envs: int):
+        state = self._gen_grid(generator, num_envs)
+        return gen_obs(self.params, state), state
+
+    def reset_staggered(self, generator: torch.Generator, num_envs: int):
+        """Reset with a uniform random initial ``step_count`` in
+        [0, max_steps) per env, so episode ends spread over the steps
+        instead of arriving in batch-wide truncation waves (essential for
+        the broadcast-row pooled reset)."""
+        obs, state = self.reset(generator, num_envs)
+        off = torch.randint(0, self.params.max_steps, (num_envs,),
+                            generator=generator, device=self.device,
+                            dtype=torch.int32)
+        return obs, state.replace(step_count=off)
+
+    def _transform_action(self, state: EnvState, action):
+        return action
+
+    def _pre_step(self, keys, state: EnvState, action) -> EnvState:
+        return state
+
+    def _post_step(self, prev: EnvState, state: EnvState, action, reward,
+                   terminated):
+        return state, reward, terminated
+
+    def step_state(self, keys, state: EnvState, action):
+        """The state transition alone, in plain PyTorch, hooks included.
+        Returns (state, reward, terminated, truncated)."""
+        prev = state
+        action = self._transform_action(state, action)
+        state = self._pre_step(keys, state, action)
+        new_state, reward, terminated = step_core(self.params, state, action)
+        new_state, reward, terminated = self._post_step(
+            prev, new_state, action, reward, terminated)
+        new_state = new_state.replace(terminated=terminated)
+        return new_state, reward, terminated, new_state.truncated
+
+    def step(self, keys, state: EnvState, action):
+        """One step of every env through the fused step (the kernel on the
+        card). Returns (obs, state, reward, terminated, truncated, info)."""
+        require_core_dynamics(self)
+        st, obs, reward, term, trunc = fused_rollout(
+            self.params, state, _actions(action)[None])
+        return self._obs_dict(obs[0], st), st, reward[0], term[0], trunc[0], {}
+
+    def step_autoreset_presampled(self, keys, states: EnvState, actions,
+                                  reset_row: LayoutPool):
+        return autoreset_step_presampled(self, keys, states, actions,
+                                         reset_row)
+
+    def step_autoreset_pooled(self, keys, states: EnvState, actions,
+                              pool: LayoutPool, generator: torch.Generator):
+        return autoreset_step_pooled(self, keys, states, actions, pool,
+                                     generator)
+
+    def make_pool(self, generator: torch.Generator,
+                  pool_size: int = 1024) -> LayoutPool:
+        return make_layout_pool(self, generator, pool_size)
+
+    def generator(self, seed: int) -> torch.Generator:
+        """A ``torch.Generator`` on this env's device, seeded."""
+        return torch.Generator(device=self.device).manual_seed(seed)

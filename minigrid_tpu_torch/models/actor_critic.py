@@ -1,0 +1,143 @@
+"""Actor-critic policy network.
+
+Counterpart of ``minigrid_tpu/models/actor_critic.py`` (``ActorCritic``): the
+symbolic view as one-hot type/color/state planes padded to 12/8/4 = 24
+features per cell, the mission as a masked mean of token embeddings
+(computed from vocabulary counts), the direction one-hot, a two-layer dense
+trunk in ``dtype`` (bfloat16 by default) and float32 policy/value heads.
+Weights are float32 masters, cast to ``dtype`` at forward, as Flax's
+``nn.Dense(dtype=bf16)`` does; ``convert.actor_critic_from_flax`` loads the
+JAX package's parameters.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.core.actions import NUM_ACTIONS
+from minigrid_tpu_torch.core.mission import VOCAB_SIZE
+from minigrid_tpu_torch.core.types import resolve_device
+
+N_TYPE, N_COLOR, N_STATE = 12, 8, 4
+assert N_TYPE >= C.NUM_OBJECTS and N_COLOR >= C.NUM_COLORS and N_STATE >= 3
+CELL_FEATURES = N_TYPE + N_COLOR + N_STATE  # 24
+
+
+def _encode_planes(t, c, s, dtype):
+    """(..., V, V) index planes -> (..., V*V*CELL_FEATURES) one-hot."""
+    dev = t.device
+    feat = torch.cat([
+        t[..., None] == torch.arange(N_TYPE, device=dev),
+        c[..., None] == torch.arange(N_COLOR, device=dev),
+        s[..., None] == torch.arange(N_STATE, device=dev),
+    ], dim=-1)
+    return feat.reshape(*feat.shape[:-3], -1).to(dtype)
+
+
+def encode_image(image: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """(..., V, V, 3) uint8 -> (..., V*V*24) one-hot features."""
+    image = image.to(torch.int64)
+    return _encode_planes(image[..., 0], image[..., 1], image[..., 2], dtype)
+
+
+def encode_packed(cells: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """(..., V, V) packed int32 -> the same (..., V*V*24) features."""
+    return _encode_planes(cells & 15, (cells >> 4) & 7, (cells >> 7) & 3,
+                          dtype)
+
+
+def mission_counts(tokens: torch.Tensor) -> torch.Tensor:
+    """(..., L) token ids -> (..., VOCAB_SIZE) uint8 token counts."""
+    vocab = torch.arange(VOCAB_SIZE, device=tokens.device)
+    return (tokens[..., None] == vocab).sum(-2).to(torch.uint8)
+
+
+def encode_obs(obs: dict, dtype=torch.uint8) -> dict:
+    """Raw observation -> the policy's parameter-free input encoding
+    ``{"img_feat": (..., V*V*24), "mission_counts": uint8 (..., VOCAB),
+    "direction"}``: the form the rollout stores."""
+    if "img_feat" in obs:
+        return obs
+    if "packed" in obs:
+        feat = encode_packed(obs["packed"], dtype)
+    else:
+        feat = encode_image(obs["image"], dtype)
+    counts = (obs["mission_counts"] if "mission_counts" in obs
+              else mission_counts(obs["mission"]))
+    return {"img_feat": feat, "mission_counts": counts,
+            "direction": obs["direction"]}
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class ActorCritic(nn.Module):
+    """MLP actor-critic; ``forward(obs) -> (logits (B, A) f32, value (B,)
+    f32)`` on raw ("packed"/"image" + "mission" + "direction") or encoded
+    observations."""
+
+    def __init__(self, view_size: int = 7, hidden: int = 256,
+                 mission_dim: int = 64, num_actions: int = NUM_ACTIONS,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.hidden = hidden
+        self.mission_dim = mission_dim
+        self.num_actions = num_actions
+        self.dtype = dtype
+        img = view_size * view_size * CELL_FEATURES
+        self.img_in = nn.Linear(img, hidden, device=device)
+        self.mission_embed = nn.Parameter(
+            torch.empty(VOCAB_SIZE, mission_dim, device=device))
+        self.trunk1 = nn.Linear(hidden + mission_dim + 4, hidden,
+                                device=device)
+        self.trunk2 = nn.Linear(hidden, hidden, device=device)
+        self.policy = nn.Linear(hidden, num_actions, device=device)
+        self.value = nn.Linear(hidden, 1, device=device)
+        init_params(self, None)
+
+    def forward(self, obs: dict):
+        dt = self.dtype
+        if "img_feat" in obs:
+            img = obs["img_feat"].to(dt)
+        elif "packed" in obs:
+            img = encode_packed(obs["packed"], dt)
+        else:
+            img = encode_image(obs["image"], dt)
+        x = F.relu(_dense(self.img_in, img, dt))
+
+        counts = (obs["mission_counts"] if "mission_counts" in obs
+                  else mission_counts(obs["mission"]))
+        not_pad = torch.arange(VOCAB_SIZE, device=counts.device) != 0
+        counts = counts.to(dt) * not_pad
+        n = counts.sum(-1, keepdim=True)
+        pooled = (counts @ self.mission_embed.to(dt)) / n.clamp(min=1)
+
+        d = F.one_hot(obs["direction"].to(torch.int64), 4).to(dt)
+        x = torch.cat([x, pooled, d], dim=-1)
+        x = F.relu(_dense(self.trunk1, x, dt))
+        x = F.relu(_dense(self.trunk2, x, dt))
+        logits = _dense(self.policy, x, torch.float32)
+        value = _dense(self.value, x, torch.float32)
+        return logits, value.squeeze(-1)
+
+
+def init_params(model: ActorCritic, generator: torch.Generator | None):
+    """Draw fresh parameters as Flax initializes them: Dense kernels
+    LeCun-normal (truncated at 2 sigma), biases zero, the mission table
+    standard normal. Returns ``model``."""
+    with torch.no_grad():
+        for layer in (model.img_in, model.trunk1, model.trunk2, model.policy,
+                      model.value):
+            std = math.sqrt(1.0 / layer.in_features) / .87962566103423978
+            nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+            nn.init.zeros_(layer.bias)
+        nn.init.normal_(model.mission_embed, generator=generator)
+    return model

@@ -1,0 +1,312 @@
+"""Fused step + observation over T steps: the CUDA kernel and its plain
+PyTorch version.
+
+Counterpart of ``minigrid_tpu/ops/fused_step.py``, whose Pallas kernel it
+replaces with ``csrc/fused_step.cu`` (one thread per env, the env's packed
+grid in shared memory, scalars in registers across the T steps). On the card
+this is the production step of every env without step hooks
+(:func:`require_core_dynamics`): ``MiniGridEnv.step`` and the pooled
+auto-reset go through it.
+
+Routing is by the device of the tensors: CPU tensors take
+:func:`fused_rollout_reference` (the port's ``step_core`` + ``gen_obs``),
+CUDA tensors take the kernel or raise; nothing falls back.
+
+The kernel is compiled at first use with ``nvcc`` into a shared library with
+a plain C interface, under ``minigrid_tpu_torch/_build/`` (named by a hash of
+the source and flags, so an edited source is rebuilt), and loaded with
+``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from minigrid_tpu_torch.core import grid as G
+from minigrid_tpu_torch.core.obs import gen_obs
+from minigrid_tpu_torch.core.step import step_core
+from minigrid_tpu_torch.core.types import EnvParams, EnvState
+
+NSCAL = 8  # x, y, dir, carrying, step_count, terminated, truncated, pad
+VIEW_SIZES = (3, 5, 7)  # the kernel's compiled view sizes
+ENVS_PER_BLOCK = 32  # one warp per block (csrc/fused_step.cu kEnvs)
+SMEM_LIMIT = 227 * 1024  # shared memory one block may opt into on sm_90
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "fused_step.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+
+def require_core_dynamics(env) -> None:
+    """Raise unless ``env`` uses the unmodified core transition.
+
+    The fused step implements only ``step_core``: an env that overrides
+    ``step_state``/``_pre_step``/``_post_step``/``_transform_action`` would
+    get wrong dynamics through it."""
+    from minigrid_tpu_torch.envs.base import MiniGridEnv
+
+    for name in ("step_state", "_pre_step", "_post_step",
+                 "_transform_action"):
+        if getattr(type(env), name) is not getattr(MiniGridEnv, name):
+            raise NotImplementedError(
+                f"{type(env).__name__} overrides {name}; the fused step "
+                "implements only the core transition")
+
+
+# --------------------------------------------------------------------------
+# Reset rows: the kernel's broadcast-reset format. Row t is one reset state
+# as its packed grid (W*H int32 cells, x-major) and NSCAL int32 scalars.
+# --------------------------------------------------------------------------
+
+def pack_rows(states: EnvState):
+    """Batched EnvState (P, ...) -> (grid (P, W*H), scal (P, NSCAL)) int32."""
+    P = states.batch_size
+    grid = G.pack_cells(states.grid).reshape(P, -1)
+    zero = torch.zeros_like(states.step_count)
+    scal = torch.stack([
+        states.agent_pos[:, 0], states.agent_pos[:, 1], states.agent_dir,
+        G.pack_cells(states.carrying), states.step_count,
+        states.terminated.to(torch.int32), states.truncated.to(torch.int32),
+        zero], dim=-1)
+    return grid.contiguous(), scal.to(torch.int32).contiguous()
+
+
+def unpack_rows(grid: torch.Tensor, scal: torch.Tensor, width: int,
+                height: int) -> dict:
+    """Inverse of :func:`pack_rows` for the core fields."""
+    return {
+        "grid": G.unpack_cells(grid).reshape(-1, width, height, 5),
+        "agent_pos": scal[:, 0:2].contiguous(),
+        "agent_dir": scal[:, 2].contiguous(),
+        "carrying": G.unpack_cells(scal[:, 3]),
+        "step_count": scal[:, 4].contiguous(),
+        "terminated": scal[:, 5] != 0,
+        "truncated": scal[:, 6] != 0,
+    }
+
+
+def select_reset_row(params: EnvParams, st: EnvState, done: torch.Tensor,
+                     grid_row: torch.Tensor, scal_row: torch.Tensor):
+    """Core fields of the reset row selected into the envs where ``done``."""
+    row = unpack_rows(grid_row[None], scal_row[None], params.width,
+                      params.height)
+    new = {}
+    for k, v in row.items():
+        cur = getattr(st, k)
+        mask = done.reshape((-1,) + (1,) * (cur.ndim - 1))
+        new[k] = torch.where(mask, v.to(cur.dtype), cur)
+    return st.replace(**new)
+
+
+# --------------------------------------------------------------------------
+# Plain version
+# --------------------------------------------------------------------------
+
+def fused_rollout_reference(params: EnvParams, states: EnvState,
+                            actions: torch.Tensor, native_layout: bool = False,
+                            reset_grid: torch.Tensor | None = None,
+                            reset_scal: torch.Tensor | None = None):
+    """The fused step's function in plain PyTorch: T steps of ``step_core``
+    (terminated is this step's flag), the optional broadcast reset row
+    selected into finished envs, then ``gen_obs`` in packed mode.
+
+    Same signature and outputs as :func:`fused_rollout`."""
+    T, B = actions.shape
+    V = params.view_size
+    packed = dataclasses.replace(params, packed_obs=True)
+    st = states
+    obs, rew, term, trunc = [], [], [], []
+    for t in range(T):
+        st, r, te = step_core(params, st, actions[t])
+        st = st.replace(terminated=te)
+        tr = st.truncated
+        if reset_grid is not None:
+            st = select_reset_row(params, st, te | tr, reset_grid[t],
+                                  reset_scal[t])
+        obs.append(gen_obs(packed, st)["packed"])
+        rew.append(r)
+        term.append(te)
+        trunc.append(tr)
+    obs = torch.stack(obs)                                  # (T, B, V, V)
+    if native_layout:
+        obs = obs.reshape(T, B, V * V).permute(0, 2, 1).contiguous()
+    return st, obs, torch.stack(rew), torch.stack(term), torch.stack(trunc)
+
+
+# --------------------------------------------------------------------------
+# The kernel
+# --------------------------------------------------------------------------
+
+class FusedStepKernel:
+    """The compiled library, built and loaded at first use, and the count
+    of kernel launches (``launches``, a plain int that only the launch
+    adds to)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.build_log = ""
+        self._lib = None
+
+    def library(self):
+        if self._lib is None:
+            path, self.build_log = build()
+            lib = ctypes.CDLL(str(path))
+            lib.fused_step_launch.argtypes = (
+                [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
+                + [ctypes.c_void_p])
+            lib.fused_step_launch.restype = ctypes.c_int
+            lib.fused_step_error_string.argtypes = [ctypes.c_int]
+            lib.fused_step_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+KERNEL = FusedStepKernel()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def build() -> tuple[Path, str]:
+    """Compile ``csrc/fused_step.cu`` (once per source and flag set) and
+    return (library path, compiler output). The output carries ptxas's
+    register, shared-memory and spill report; empty when already built."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libfused_step_{tag}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def shared_memory_bytes(num_cells: int, view_size: int) -> int:
+    """Shared memory of one block (csrc/fused_step.cu ``launch``): the
+    packed grids plus one staging row per env, the larger of the grid's
+    bytes and the V*V observation words, rounded up to an odd word count."""
+    row = max((num_cells * 5 + 3) // 4, view_size * view_size) | 1
+    return (num_cells + row) * ENVS_PER_BLOCK * 4
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _fused_rollout_cuda(params, states, actions, native_layout, reset_grid,
+                        reset_scal):
+    W, H, V = params.width, params.height, params.view_size
+    NC = W * H
+    T, B = actions.shape
+    if V not in VIEW_SIZES:
+        raise ValueError(f"the kernel is compiled for view sizes "
+                         f"{VIEW_SIZES}, got {V}")
+    if T < 1 or B < 1:
+        raise ValueError(f"empty launch: T={T}, B={B}")
+    if shared_memory_bytes(NC, V) > SMEM_LIMIT:
+        raise ValueError(f"a {W}x{H} grid does not fit the kernel's shared "
+                         f"memory ({shared_memory_bytes(NC, V)} bytes)")
+    _check(states.grid, "grid", torch.uint8, (B, W, H, 5))
+    _check(states.agent_pos, "agent_pos", torch.int32, (B, 2))
+    _check(states.agent_dir, "agent_dir", torch.int32, (B,))
+    _check(states.carrying, "carrying", torch.uint8, (B, 5))
+    _check(states.step_count, "step_count", torch.int32, (B,))
+    _check(actions, "actions", torch.int32, (T, B))
+    if reset_grid is not None:
+        _check(reset_grid, "reset_grid", torch.int32, (T, NC))
+        _check(reset_scal, "reset_scal", torch.int32, (T, NSCAL))
+    dev = actions.device
+    obs = torch.empty((T, V * V, B) if native_layout else (T, B, V, V),
+                      dtype=torch.int32, device=dev)
+    reward = torch.empty((T, B), dtype=torch.float32, device=dev)
+    term = torch.empty((T, B), dtype=torch.bool, device=dev)
+    trunc = torch.empty((T, B), dtype=torch.bool, device=dev)
+    out = states.replace(
+        grid=torch.empty_like(states.grid),
+        agent_pos=torch.empty_like(states.agent_pos),
+        agent_dir=torch.empty_like(states.agent_dir),
+        carrying=torch.empty_like(states.carrying),
+        step_count=torch.empty_like(states.step_count),
+        terminated=torch.empty((B,), dtype=torch.bool, device=dev),
+        truncated=torch.empty((B,), dtype=torch.bool, device=dev),
+    )
+    lib = KERNEL.library()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    code = lib.fused_step_launch(
+        ptr(states.grid), ptr(states.agent_pos), ptr(states.agent_dir),
+        ptr(states.carrying), ptr(states.step_count), ptr(actions),
+        ptr(reset_grid), ptr(reset_scal),
+        ptr(obs), ptr(reward), ptr(term), ptr(trunc),
+        ptr(out.grid), ptr(out.agent_pos), ptr(out.agent_dir),
+        ptr(out.carrying), ptr(out.step_count), ptr(out.terminated),
+        ptr(out.truncated),
+        B, T, W, H, V, params.max_steps, int(params.see_through_walls),
+        int(native_layout), torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        msg = lib.fused_step_error_string(code).decode()
+        raise RuntimeError(f"fused_step kernel launch failed: {msg}")
+    KERNEL.launches += 1
+    return out, obs, reward, term, trunc
+
+
+def fused_rollout(params: EnvParams, states: EnvState, actions: torch.Tensor,
+                  native_layout: bool = False,
+                  reset_grid: torch.Tensor | None = None,
+                  reset_scal: torch.Tensor | None = None):
+    """Run T = actions.shape[0] core-dynamics steps for B batched envs.
+
+    ``states``: batched EnvState; only the core fields are stepped
+    (mission and rng pass through untouched). ``actions``: (T, B)
+    int32. With ``reset_grid`` (T, W*H) / ``reset_scal`` (T, NSCAL) int32
+    (see :func:`pack_rows`), envs finishing step t take reset row t before
+    that step's observation. Returns ``(new_states, obs, reward, terminated,
+    truncated)``: obs is the 9-bit packed view, (T, B, V, V) int32 indexed
+    [vx, vy], or the kernel-native (T, V*V, B) with ``native_layout``;
+    reward (T, B) float32; terminated/truncated (T, B) bool, the flags of
+    each step before any reset.
+
+    CPU tensors run :func:`fused_rollout_reference`; CUDA tensors run the
+    kernel. Validate the source env with :func:`require_core_dynamics`.
+    """
+    if (reset_grid is None) != (reset_scal is None):
+        raise ValueError("reset_grid and reset_scal go together")
+    dev = states.grid.device.type
+    if dev == "cpu":
+        return fused_rollout_reference(params, states, actions,
+                                       native_layout, reset_grid, reset_scal)
+    if dev != "cuda":
+        raise ValueError(f"fused_rollout runs on cpu or cuda, got {dev}")
+    return _fused_rollout_cuda(params, states, actions, native_layout,
+                               reset_grid, reset_scal)

@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""Where the port's time goes on one GPU: the main-path rollout under
+``torch.profiler``, and the fused step kernel at the main path's batch and
+at a batch that fills the card.
+
+    python3 port_probes/rollout_profile.py [--steps 16]
+
+Prints the card, the host time per rollout step, the device busy share
+(union of kernel intervals over the profiled wall time), the top device
+kernels by total time, and the kernel's time per launch (CUDA events) at
+T=1 and T=128, with the public and the kernel-native observation layout,
+and pure stepping throughput at B=4096 and B=65536 (device time, one T=128
+launch). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def busy_share(events, wall_us: float) -> float:
+    """Fraction of ``wall_us`` covered by at least one device kernel."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    covered, end = 0.0, -1.0
+    for s, e in spans:
+        if e <= end:
+            continue
+        covered += e - max(s, end)
+        end = e
+    return covered / wall_us
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=16)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch.models.actor_critic import ActorCritic, init_params
+    from minigrid_tpu_torch.models.ppo import rollout, sample_rollout_noise
+    from minigrid_tpu_torch.ops import fused_step as F
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}")
+    B, T = 4096, args.steps
+    env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
+    g = env.generator(0)
+    pool = env.make_pool(g, 1024)
+    obs, st = env.reset_staggered(g, B)
+    model = init_params(ActorCritic(device="cuda"), g)
+    st, obs, _ = rollout(model, env, st, obs,
+                         sample_rollout_noise(g, pool, B, 8, 7))
+    noise = sample_rollout_noise(g, pool, B, T, 7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, obs, _ = rollout(model, env, st, obs, noise)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"rollout B={B} T={T} under the profiler: "
+          f"{wall / T * 1e3:.3f} ms/step host, "
+          f"{len(dev) / T:.1f} device kernels/step, device busy "
+          f"{busy_share(dev, wall * 1e6):.3f} of wall ({card})")
+    totals = {}
+    for e in dev:
+        n, us = totals.get(e.name, (0, 0.0))
+        totals[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(totals.items(), key=lambda kv: -kv[1][1])[:12]
+    for name, (n, us) in top:
+        print(f"  {us / T:9.2f} us/step  {n / T:5.1f}/step  {name[:90]}")
+
+    def ms_per_launch(fn, reps):
+        fn()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    _, st0 = env.reset(g, B)
+    row = pool.rows(0)
+    a1 = torch.randint(0, 7, (1, B), generator=g, device="cuda",
+                       dtype=torch.int32)
+    a128 = torch.randint(0, 7, (128, B), generator=g, device="cuda",
+                         dtype=torch.int32)
+    for native in (False, True):
+        t1 = ms_per_launch(lambda: F._fused_rollout_cuda(
+            env.params, st0, a1, native, row.grid, row.scal), 200)
+        t128 = ms_per_launch(lambda: F._fused_rollout_cuda(
+            env.params, st0, a128, native, None, None), 20)
+        print(f"kernel, {'native' if native else 'public'} obs layout: "
+              f"T=1 with reset row {t1 * 1e3:.2f} us, T=128 "
+              f"{t128 * 1e3:.2f} us (CUDA events, back to back; {card})")
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import device_ms
+
+    for batch in (4096, 65536):
+        _, stb = env.reset(g, batch)
+        ab = torch.randint(0, 7, (128, batch), generator=g, device="cuda",
+                           dtype=torch.int32)
+        ms = device_ms(lambda: F._fused_rollout_cuda(
+            env.params, stb, ab, False, None, None), 5)
+        print(f"kernel device time, B={batch} T=128: {ms * 1e3:.1f} us = "
+              f"{batch * 128 / ms * 1e3:.3e} env-steps/s ({card})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

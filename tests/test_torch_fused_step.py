@@ -1,0 +1,200 @@
+"""The port's fused step (minigrid_tpu_torch/ops/fused_step.py).
+
+On the CPU its plain version must reproduce the JAX package's Pallas kernel
+(``fused_rollout(..., interpret=True)``, as tests/test_fused_step.py runs it)
+and the JAX pooled auto-reset bit-exactly, the reward within rtol 1e-6.
+The CUDA kernel itself runs only on the card
+(tests/test_torch_kernel_gpu.py)."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from minigrid_tpu.envs.base import (autoreset_step_presampled as
+                                    j_autoreset_presampled,
+                                    presample_reset_states as j_presample)
+from minigrid_tpu.ops.fused_step import fused_rollout as j_fused_rollout
+
+import minigrid_tpu_torch
+from minigrid_tpu_torch.envs.base import (MiniGridEnv, pool_from_states,
+                                          random_keys)
+from minigrid_tpu_torch.ops import fused_step as F
+from minigrid_tpu_torch.ops.fused_step import (KERNEL, fused_rollout,
+                                               require_core_dynamics)
+
+from tests.torch_port_utils import (CPU, action_stream, assert_state_equal,
+                                    export, jax_states)
+
+CASES = [
+    ("MiniGrid-Empty-8x8-v0", "uniform"),
+    ("MiniGrid-DoorKey-8x8-v0", "uniform"),
+    ("MiniGrid-DoorKey-5x5-v0", "interact"),
+]
+
+
+@pytest.mark.parametrize("native", [False, True])
+@pytest.mark.parametrize("env_id,kind", CASES)
+def test_plain_matches_jax_pallas_kernel(env_id, kind, native):
+    B, T = 128, 8
+    env, jst = jax_states(env_id, B)
+    actions = action_stream(kind, T, B)
+    j_new, j_obs, j_rew, j_te, j_tr = j_fused_rollout(
+        env.params, jst, jnp.asarray(actions), T_tile=8, interpret=True,
+        native_layout=native)
+    launches = KERNEL.launches
+    p_new, p_obs, p_rew, p_te, p_tr = fused_rollout(
+        env.params, export(jst), torch.from_numpy(actions),
+        native_layout=native)
+    assert KERNEL.launches == launches  # CPU tensors: the plain version
+    np.testing.assert_array_equal(p_obs.numpy(), np.asarray(j_obs))
+    np.testing.assert_allclose(p_rew.numpy(), np.asarray(j_rew), rtol=1e-6)
+    np.testing.assert_array_equal(p_te.numpy(), np.asarray(j_te))
+    np.testing.assert_array_equal(p_tr.numpy(), np.asarray(j_tr))
+    assert_state_equal(p_new, j_new, fields=(
+        "grid", "agent_pos", "agent_dir", "carrying", "step_count",
+        "terminated", "truncated", "mission", "rng"))
+
+
+def _reset_case(env_id, B=96, T=10, seed=0):
+    """JAX and port inputs for T pooled auto-reset steps: states close to
+    truncation (so resets happen), per-step keys, presampled reset rows."""
+    env, jst = jax_states(env_id, B, seed)
+    ms = env.params.max_steps
+    jst = jst.replace(step_count=jnp.asarray(
+        ms - 1 - (np.arange(B) % (T + 4)), jnp.int32))
+    pool = env.make_pool(jax.random.PRNGKey(seed + 5), 16)
+    j_rows = j_presample(jax.random.PRNGKey(seed + 6), pool, T)
+    keys = jax.random.split(jax.random.PRNGKey(seed + 7), T * B)
+    keys = np.array(keys).reshape(T, B, 2)
+    p_rows = pool_from_states(export(j_rows))
+    return env, jst, keys, j_rows, p_rows
+
+
+@pytest.mark.parametrize("env_id,kind", CASES)
+def test_reset_row_entry_matches_jax_autoreset(env_id, kind):
+    B, T = 96, 10
+    env, jst, keys, j_rows, p_rows = _reset_case(env_id, B, T)
+    actions = action_stream(kind, T, B)
+    penv = minigrid_tpu_torch.make(env_id, device=CPU).packed()
+    pst = export(jst)
+    step = jax.jit(lambda k, s, a, r: j_autoreset_presampled(env, k, s, a, r))
+    n_done = 0
+    for t in range(T):
+        j_row = jax.tree.map(lambda x: x[t], j_rows)
+        jo, jst, jr, jte, jtr, _ = step(jnp.asarray(keys[t]), jst,
+                                        jnp.asarray(actions[t]), j_row)
+        po, pst, pr, pte, ptr, _ = penv.step_autoreset_presampled(
+            torch.from_numpy(keys[t].view(np.int32)), pst,
+            torch.from_numpy(actions[t]), p_rows.rows(t))
+        msg = f"{env_id} step {t}"
+        for k in jo:
+            np.testing.assert_array_equal(po[k].numpy(), np.asarray(jo[k]),
+                                          err_msg=f"{msg} obs {k}")
+        assert_state_equal(pst, jst, msg=msg, fields=(
+            "grid", "agent_pos", "agent_dir", "carrying", "step_count",
+            "terminated", "truncated", "mission", "rng"))
+        np.testing.assert_allclose(pr.numpy(), np.asarray(jr), rtol=1e-6)
+        np.testing.assert_array_equal(pte.numpy(), np.asarray(jte))
+        np.testing.assert_array_equal(ptr.numpy(), np.asarray(jtr))
+        n_done += int((pte | ptr).sum())
+    assert n_done >= B // 2  # the case really exercises the reset select
+
+
+def test_reset_rows_over_t_steps_match_single_steps():
+    """The T-step reset-row entry equals T single-step calls."""
+    B, T = 64, 10
+    env, jst, keys, _, rows = _reset_case("MiniGrid-DoorKey-8x8-v0", B, T)
+    st0 = export(jst)
+    actions = torch.from_numpy(action_stream("uniform", T, B))
+    st, obs, rew, te, tr = fused_rollout(env.params, st0, actions,
+                                         reset_grid=rows.grid,
+                                         reset_scal=rows.scal)
+    st1 = st0
+    for t in range(T):
+        st1, o, r, e, u = fused_rollout(
+            env.params, st1, actions[t:t + 1], reset_grid=rows.grid[t:t + 1],
+            reset_scal=rows.scal[t:t + 1])
+        assert torch.equal(o[0], obs[t]) and torch.equal(r[0], rew[t])
+        assert torch.equal(e[0], te[t]) and torch.equal(u[0], tr[t])
+    for k, v in st.tensors().items():
+        assert torch.equal(v, getattr(st1, k)), k
+
+
+def test_ragged_batch_matches_step_composition():
+    """B=100 (not a multiple of the kernel's block) against the port's
+    step_state + gen_obs, composed step by step."""
+    from minigrid_tpu_torch.core.obs import gen_obs
+
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0",
+                                  device=CPU).packed()
+    g = env.generator(3)
+    _, st = env.reset(g, 100)
+    actions = torch.from_numpy(action_stream("interact", 12, 100))
+    new, obs, rew, te, tr = fused_rollout(env.params, st, actions)
+    keys = random_keys(g, (100, 2), CPU)
+    for t in range(12):
+        st, r, e, u = env.step_state(keys, st, actions[t])
+        assert torch.equal(gen_obs(env.params, st)["packed"], obs[t])
+        assert torch.equal(r, rew[t]) and torch.equal(e, te[t])
+        assert torch.equal(u, tr[t])
+    for k, v in st.tensors().items():
+        assert torch.equal(v, getattr(new, k)), k
+
+
+def test_env_step_goes_through_fused_step():
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-5x5-v0", device=CPU)
+    g = env.generator(0)
+    obs, st = env.reset(g, 16)
+    keys = random_keys(g, (16, 2), CPU)
+    a = torch.from_numpy(action_stream("interact", 1, 16)[0])
+    o, st2, r, te, tr, _ = env.step(keys, st, a)
+    want = env.step_state(keys, st, a)
+    for k, v in want[0].tensors().items():
+        assert torch.equal(v, getattr(st2, k)), k
+    assert o["image"].shape == (16, 7, 7, 3) and o["image"].dtype == \
+        torch.uint8
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0", device=CPU)
+    _, st = env.reset(env.generator(0), 4)
+    a = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        F._fused_rollout_cuda(env.params, st, a, False, None, None)
+    with pytest.raises(ValueError, match="together"):
+        fused_rollout(env.params, st, a, reset_grid=torch.zeros((1, 64)))
+
+
+def test_shared_memory_and_build_flags():
+    # DoorKey-8x8: 64 cells + an 81-word staging row per env, 32 envs
+    assert F.shared_memory_bytes(64, 7) == (64 + 81) * 32 * 4
+    assert F.shared_memory_bytes(25, 7) == (25 + 49) * 32 * 4
+    assert F.shared_memory_bytes(19 * 19, 7) <= F.SMEM_LIMIT  # FourRooms
+    assert F.shared_memory_bytes(32 * 32, 7) > F.SMEM_LIMIT
+    env = minigrid_tpu_torch.make("MiniGrid-Empty-8x8-v0", device=CPU)
+    _, st = env.reset(env.generator(0), 2)
+    with pytest.raises(ValueError, match="view sizes"):
+        F._fused_rollout_cuda(env.replace_params(view_size=9).params, st,
+                              torch.zeros((1, 2), dtype=torch.int32), False,
+                              None, None)
+    flags = " ".join(F.NVCC_FLAGS)
+    assert "sm_90a" in flags and "-fmad=false" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert F.SOURCE.exists()
+
+
+def test_require_core_dynamics_rejects_hooked_envs():
+    class Hooked(MiniGridEnv):
+        def _post_step(self, prev, state, action, reward, terminated):
+            return state, reward, terminated
+
+    require_core_dynamics(minigrid_tpu_torch.make("MiniGrid-Empty-5x5-v0",
+                                                  device=CPU))
+    with pytest.raises(NotImplementedError, match="_post_step"):
+        require_core_dynamics(Hooked(minigrid_tpu_torch.EnvParams(),
+                                     device=CPU))
