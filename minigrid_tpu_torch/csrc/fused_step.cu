@@ -10,35 +10,51 @@
 // entry takes one broadcast reset row per step (packed grid + scalars): envs
 // that finish the step (terminated | truncated) take the row after the
 // transition and before the observation, the order of the JAX package's
-// envs/base.py::_apply_broadcast_reset.
+// envs/base.py::_apply_broadcast_reset. Any odd view size 3..31 (a view row
+// is one 32-bit mask), compiled for V=7 and for V given at run time.
 //
-// Design: one thread per env, one warp of 32 envs per block (a sweep over
-// 32/64/128 envs per block on the H100 favoured 32: B=4096 then spreads over
-// 128 SMs instead of 32). The block keeps its envs' packed grids in shared
-// memory laid out [cell][env], so thread t touches only smem[c * 32 + t]:
-// no bank conflicts. The scalars stay in registers across the T steps, so
-// the state crosses device memory once per launch. The one-hot contractions
-// of the TPU kernel become direct indexed shared-memory reads (1 for the
-// front cell, V*V for the window); the visibility flood stays the per-row
-// bit-packed Kogge-Stone recurrence of core/visibility.py in 32-bit integer
-// registers. The kernel reads and writes the public EnvState tensors (grid
-// (B, W, H, 5) uint8 and friends) directly, so a rollout that calls it once
-// per step needs no layout conversion around it. Device-memory traffic is
-// coalesced through a staging area of one row per env in shared memory (an
-// odd number of words, so per-thread row access is conflict-free): the
-// block's contiguous grid bytes are copied in and out by the whole warp,
-// and each step's (B, V*V) observation rows are gathered there and written
-// out as one contiguous run.
+// Design: a group of G lanes per env (G = 1, 2, 4, 8, 16 or 32, a template
+// parameter that the wrapper picks per launch from B and the SM count:
+// enough lanes per env that a small batch still gives every SM's four
+// schedulers a warp each, and no more, since the serial work below is
+// repeated on each of an env's lanes), 256 threads per block. Work that is
+// parallel across cells is spread over the group's lanes: the grid copy in
+// and out (16-byte vectors where aligned), the cell packing, the reset-row
+// copy and the window reads. The view is swept row by row from the agent's
+// row up: for row j, lane k reads view cells (k, j), (k+G, j), ..., one
+// ballot per G cells gives the row's transparency mask, every lane of the
+// group runs the row's flood on it (uniform values, no broadcast), and the
+// row's observation words follow at once from the row's visibility, so each
+// window cell is read once. The flood is the two-pass sweep of
+// core/visibility.py on a row packed into one 32-bit mask, each pass one
+// integer add (a carry runs through a run of transparent cells; the
+// descending pass works on the bit-reversed row). The loop has no branches,
+// so the compiler issues the rows' reads ahead of their floods. The scalar
+// transition also runs on every lane of the group, and one lane writes the
+// front cell. The observation words go to shared memory, and the warp then
+// writes its envs' words for the step as one contiguous run (full 32-byte
+// sectors; scattered 4-byte stores were the first design's bottleneck at
+// large B). Nothing synchronises beyond the warp.
+//
+// Shared memory per env: the packed cells (int32, an odd row length, so 32
+// lanes reading the same cell of 32 envs hit 32 banks; bit 16 caches the
+// cell's transparency), the V*V observation words of the current step, and
+// the env's grid bytes as (W, H, 5) uint8. The bytes are copied in once,
+// packed by the group, and kept equal to the packed cells by every write
+// (the front cell, a reset row), so the state goes back out as a straight
+// vector copy with no unpacking: a step writes at most one cell or one
+// reset row. The scalars stay in registers across the T steps, and each
+// step's actions come G steps at a time, one per lane, a chunk ahead, and
+// are shuffled to the group.
 //
 // Bound: bytes. Per launch it reads the state (B * (W*H*5 + 21) bytes) and
-// writes it back with its two flags (B * (W*H*5 + 23)), reads T * B int32 actions and writes
-// T * B * (4*V*V + 4 + 2) bytes of observations, rewards and flags; the
-// arithmetic per byte is a few integer operations. At B=4096, DoorKey-8x8
-// (W*H=64), V=7: T=1 with a reset row moves ~3.64 MB (~1.09 us at
-// 3.35 TB/s), T=128 ~110.8 MB (~33.1 us). At T=1 the launch overhead is
-// larger than the bound; the T-step entry keeps the state out of device
-// memory between steps.
-//
+// writes it back with its two flags (B * (W*H*5 + 23)), reads T * B int32
+// actions and writes T * B * (4*V*V + 4 + 2) bytes of observations, rewards
+// and flags. The integer work is a few hundred operations per env-step
+// (2 V^2 window reads and tests, V rows x 2 ceil(log2 V) Kogge-Stone steps
+// of two operations, ~30 for the transition): at B=4096, T=128, DoorKey-8x8
+// about 6.6 us at the H100's INT32 rate against the 33.1 us byte bound.
+
 // Float rule: the reward is 1 - 0.9 * (step_count / max_steps) rounded after
 // each operation (__fdiv_rn, __fmul_rn, __fsub_rn, and the build passes
 // -fmad=false), so it is bit-identical to the plain PyTorch version.
@@ -56,6 +72,9 @@ constexpr int kEmpty = 1, kWall = 2, kFloor = 3, kDoor = 4, kKey = 5,
 constexpr int kOpen = 0, kClosed = 1, kLocked = 2;
 constexpr int kWallPacked = kWall | (5 << 4);  // grey wall
 constexpr int kNScal = 8;  // x, y, dir, carrying, step_count, term, trunc, pad
+constexpr int kMaxThreads = 256;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kBadLaunch = -1;
 
 struct Args {
   const uint8_t* grid_in;    // (B, W, H, 5)
@@ -77,11 +96,39 @@ struct Args {
   int32_t* step_out;         // (B,)
   uint8_t* term_out;         // (B,)
   uint8_t* trunc_out;        // (B,)
-  int B, T, W, H, max_steps, see_through, native_layout;
+  int B, T, W, H, V, max_steps, see_through, native_layout;
+  int G, envs;  // lanes per env, envs per block
+  bool vec16;   // the grid copy goes by 16-byte vectors (else by bytes)
+};
+
+// Shared memory of a block of `envs` envs, in 32-bit words from the start
+// (mirrored by ops/fused_step.py::shared_memory_bytes): the packed cells,
+// envs x (NC | 1); the observation words of the current step, envs x V*V;
+// then, 16-byte aligned, the grid bytes, envs x (5 NC rounded up to 16
+// bytes).
+struct Layout {
+  int ncp, sb, obs_off, stage_off, bytes;
+  __host__ __device__ Layout(int nc, int v, int envs)
+      : ncp(nc | 1),
+        sb((5 * nc + 15) & ~15),
+        obs_off(envs * ncp),
+        stage_off((obs_off + envs * v * v + 3) & ~3),
+        bytes(stage_off * 4 + envs * sb) {}
 };
 
 __device__ __forceinline__ int pack5(const uint8_t* c) {
   return c[0] | (c[1] << 4) | (c[2] << 7) | (c[3] << 9) | (c[4] << 13);
+}
+
+// A packed cell as kept in shared memory: bit 16 set when light passes
+// (see_behind: not a wall, not a closed or locked door). Out-of-grid reads
+// give kWallPacked, which has it clear.
+constexpr int kClear = 1 << 16;
+
+__device__ __forceinline__ int with_clear(int p) {
+  const int typ = p & 15;
+  const bool opaque = (typ == kWall) | ((typ == kDoor) & ((p & 0x180) != 0));
+  return (p & 0xFFFF) | (opaque ? 0 : kClear);
 }
 
 __device__ __forceinline__ void unpack5(int p, uint8_t* c) {
@@ -92,288 +139,307 @@ __device__ __forceinline__ void unpack5(int p, uint8_t* c) {
   c[4] = (p >> 13) & 7;
 }
 
-constexpr int kEnvs = 32;  // envs (threads) per block
-
-// Words in one env's staging row: its grid bytes or its V*V observation
-// words, whichever is more, rounded up to an odd count.
-__host__ __device__ inline int stage_words(int num_cells, int view_size) {
-  const int grid_words = (num_cells * 5 + 3) / 4;
-  const int obs_words = view_size * view_size;
-  const int w = grid_words > obs_words ? grid_words : obs_words;
-  return w | 1;
+// n words from src to dst, word i by lane i % G of the group
+template <int G, typename Word>
+__device__ __forceinline__ void copy_words(Word* __restrict__ dst,
+                                           const Word* __restrict__ src,
+                                           int n, int lg) {
+#pragma unroll 4
+  for (int i = lg; i < n; i += G) dst[i] = src[i];
 }
 
-// Copy n rows of rb bytes between a contiguous global run and the staging
-// rows (stride rs words), with the whole warp, kBatch independent loads in
-// flight per thread: 4-byte words when rows and the global base are
-// word-aligned, else bytes.
-constexpr int kBatch = 8;
+template <int G>
+__device__ __forceinline__ void copy_grid(uint8_t* dst, const uint8_t* src,
+                                          int nbytes, bool vec16, int lg) {
+  if (vec16)
+    copy_words<G>(reinterpret_cast<uint4*>(dst),
+                  reinterpret_cast<const uint4*>(src), nbytes / 16, lg);
+  else
+    copy_words<G>(dst, src, nbytes, lg);
+}
 
-template <bool TO_STAGE, typename T>
-__device__ __forceinline__ void copy_run(T* global, T* stage, int n, int rl,
-                                         int rs) {
-  const int total = n * rl;
-  for (int w0 = threadIdx.x; w0 < total; w0 += kBatch * kEnvs) {
-    T v[kBatch];
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const int w = w0 + k * kEnvs;
-      const int e = w / rl;
-      if (w < total) v[k] = TO_STAGE ? global[w] : stage[e * rs + w - e * rl];
-    }
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const int w = w0 + k * kEnvs;
-      const int e = w / rl;
-      if (w < total) {
-        if (TO_STAGE) stage[e * rs + w - e * rl] = v[k];
-        else global[w] = v[k];
-      }
-    }
+// The group's G predicates as bits 0..G-1 (bit k from the group's lane k).
+// Every lane of the warp must call it.
+template <int G>
+__device__ __forceinline__ unsigned group_bits(bool p, int base) {
+  if constexpr (G == 1) {
+    return p;
+  } else {
+    const unsigned all = __ballot_sync(kAll, p);
+    if constexpr (G == 32) return all;
+    else return (all >> base) & ((1u << G) - 1);
   }
 }
 
-template <bool TO_STAGE>
-__device__ void copy_rows(uint8_t* global, int* stage, int n, int rb, int rs) {
-  if (rb % 4 == 0 && (reinterpret_cast<uintptr_t>(global) & 3) == 0)
-    copy_run<TO_STAGE>(reinterpret_cast<int*>(global), stage, n, rb / 4, rs);
-  else
-    copy_run<TO_STAGE>(global, reinterpret_cast<uint8_t*>(stage), n, rb,
-                       rs * 4);
-}
-
-// One env's grid between its staging row (5 bytes per cell) and its packed
-// cells in shared memory (cell c at g[c * kEnvs]); the two never overlap.
-__device__ __forceinline__ void pack_row(const uint8_t* __restrict__ row,
-                                         int* __restrict__ g, int nc) {
-#pragma unroll 8
-  for (int c = 0; c < nc; ++c) g[c * kEnvs] = pack5(row + 5 * c);
-}
-
-__device__ __forceinline__ void unpack_row(const int* __restrict__ g,
-                                           uint8_t* __restrict__ row, int nc) {
-#pragma unroll 8
-  for (int c = 0; c < nc; ++c) unpack5(g[c * kEnvs], row + 5 * c);
-}
-
-template <int V, bool RESET>
-__global__ void __launch_bounds__(kEnvs) fused_step_kernel(Args a) {
-  extern __shared__ int smem[];
-  constexpr int hs = V / 2, VV = V * V, full = (1 << V) - 1;
-  const int tid = threadIdx.x;
+// VC: the view size when known at compile time (7, the default), else 0
+// and the view size is a.V.
+template <int G, int VC, bool RESET>
+__global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
+  extern __shared__ uint4 smem_raw[];
+  int32_t* smem = reinterpret_cast<int32_t*>(smem_raw);
+  const int V = VC > 0 ? VC : a.V;
+  const int hs = V / 2, VV = V * V;
+  const unsigned full = (1u << V) - 1;
+  const int lg = threadIdx.x & (G - 1);          // lane within the group
+  const int base = (threadIdx.x & 31) & ~(G - 1);  // group's first warp lane
+  const int slot = threadIdx.x / G;              // env within the block
   const long long B = a.B;
-  const long long b0 = (long long)blockIdx.x * kEnvs;
-  const long long b = b0 + tid;
-  const int n = (int)(B - b0 < kEnvs ? B - b0 : kEnvs);  // ragged last block
-  const bool active = tid < n;
+  const long long b = (long long)blockIdx.x * a.envs + slot;
+  // Lanes of envs past B (the ragged last block) run every step on a
+  // dummy state, for the warp collectives, and touch no device memory.
+  const bool active = b < B;
   const int W = a.W, H = a.H, NC = W * H, RB = NC * 5;
-  const int RS = stage_words(NC, V);
-  int* g = smem + tid;            // this env's grid: cell c at g[c * kEnvs]
-  int* stage = smem + NC * kEnvs;  // kEnvs staging rows of RS words
-  int* my_stage = stage + tid * RS;
+  const Layout L(NC, V, a.envs);
+  int32_t* g = smem + slot * L.ncp;  // packed cell c at g[c], x-major
+  // the warp's envs' observation words, in the order of the public layout
+  const int warp_slot = (threadIdx.x & ~31) / G;  // first env of the warp
+  int32_t* warp_obs = smem + L.obs_off + warp_slot * VV;
+  int32_t* my_obs = smem + L.obs_off + slot * VV;
+  const long long warp_b = (long long)blockIdx.x * a.envs + warp_slot;
+  const int warp_words =
+      (int)(B - warp_b < 32 / G ? (B > warp_b ? B - warp_b : 0) : 32 / G) *
+      VV;
+  uint8_t* bytes =
+      reinterpret_cast<uint8_t*>(smem + L.stage_off) + slot * L.sb;
 
-  // --- state in: grid bytes through the staging rows, scalars direct ----
-  copy_rows<true>(const_cast<uint8_t*>(a.grid_in) + b0 * RB, stage, n, RB,
-                  RS);
-  __syncthreads();
+  // --- state in ----------------------------------------------------------
   int x = 0, y = 0, d = 0, carry = kEmpty, sc = 0, te = 0, tr = 0;
   if (active) {
-    pack_row(reinterpret_cast<const uint8_t*>(my_stage), g, NC);
+    copy_grid<G>(bytes, a.grid_in + b * RB, RB, a.vec16, lg);
     x = a.pos_in[2 * b];
     y = a.pos_in[2 * b + 1];
     d = a.dir_in[b];
     carry = pack5(a.carry_in + 5 * b);
     sc = a.step_in[b];
   }
-  __syncthreads();  // the staging rows now carry observations
+  __syncwarp();
+  for (int c = lg; c < NC; c += G) g[c] = with_clear(pack5(bytes + 5 * c));
+  __syncwarp();
 
-  for (int t = 0; t < a.T; ++t) {
-    if (active) {
-      const int act = a.actions[(long long)t * B + b];
-      sc += 1;
-      // --- transition (core/step.py::step_core) -------------------------
-      const int turn = act == 0 ? -1 : (act == 1 ? 1 : 0);
-      const int nd = (d + turn + 4) & 3;
-      const int fx = (d == 0) - (d == 2), fy = (d == 1) - (d == 3);
-      const int fwx = x + fx, fwy = y + fy;
-      const bool inb = fwx >= 0 && fwx < W && fwy >= 0 && fwy < H;
-      const int fidx = fwx * H + fwy;
-      const int fval = inb ? g[fidx * kEnvs] : kWallPacked;  // before write
-      const int ftype = fval & 15, fcolor = (fval >> 4) & 7,
-                fstate = (fval >> 7) & 3;
-      const bool carrying = (carry & 15) != kEmpty;
-      const bool can_overlap = ftype == kEmpty || ftype == kFloor ||
-                               ftype == kGoal || ftype == kLava ||
-                               (ftype == kDoor && fstate == kOpen);
-      const bool fwd = act == 2;
-      const bool move = fwd && can_overlap && inb;
-      const bool hits_goal = fwd && ftype == kGoal;
-      const bool terminated = hits_goal || (fwd && ftype == kLava);
-      const float rew =
-          hits_goal ? __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn(
-                                                    (float)sc,
-                                                    (float)a.max_steps)))
-                    : 0.0f;
-      const bool do_pickup = act == 3 && !carrying &&
-                             (ftype == kKey || ftype == kBall || ftype == kBox);
-      const bool do_drop = act == 4 && ftype == kEmpty && carrying;
-      const bool is_toggle = act == 5;
-      const bool is_door = ftype == kDoor, is_box = ftype == kBox;
-      const bool has_key =
-          (carry & 15) == kKey && ((carry >> 4) & 7) == fcolor;
-      const int toggled = fstate == kLocked
-                              ? (has_key ? kOpen : kLocked)
-                              : (fstate == kOpen ? kClosed : kOpen);
-      const int door_cell = (fval & ~(3 << 7)) | (toggled << 7);
-      const int cont_type = (fval >> 9) & 15, cont_color = (fval >> 13) & 7;
-      const int contents =
-          cont_type != 0 ? (cont_type | (cont_color << 4)) : kEmpty;
-      int new_fwd = fval;
-      if (do_pickup) new_fwd = kEmpty;
-      if (do_drop) new_fwd = carry;
-      if (is_toggle && is_door) new_fwd = door_cell;
-      if (is_toggle && is_box) new_fwd = contents;
-      if (inb && (do_pickup || do_drop || (is_toggle && (is_door || is_box))))
-        g[fidx * kEnvs] = new_fwd;
-      carry = do_pickup ? fval : (do_drop ? kEmpty : carry);
-      if (move) { x = fwx; y = fwy; }
-      d = nd;
-      te = terminated;
-      tr = sc >= a.max_steps;
+  // actions: lane k holds step t0 + k of the current chunk of G steps; the
+  // next chunk is loaded while this one is used
+  const int32_t* actions = a.actions;
+  const int T = a.T;
+  auto load_actions = [&](int t0) {
+    const int t = t0 + lg;
+    return active && t < T ? actions[(long long)t * B + b] : 0;
+  };
+  int acts = load_actions(0), next_acts = load_actions(G);
+  // view cells (vx, j) of a row j that this lane reads: vx = lg + i*G
+  constexpr int kIter = ((VC > 0 ? VC : 31) + G - 1) / G;
+
+  for (int t = 0; t < T; ++t) {
+    const int tk = t & (G - 1);
+    if (t > 0 && tk == 0) {
+      acts = next_acts;
+      next_acts = load_actions(t + G);
+    }
+    const int act = G == 1 ? acts : __shfl_sync(kAll, acts, tk, G);
+    sc += 1;
+    // --- transition (core/step.py::step_core), on every lane ------------
+    const int turn = act == 0 ? -1 : (act == 1 ? 1 : 0);
+    const int nd = (d + turn + 4) & 3;
+    const int fx = (d == 0) - (d == 2), fy = (d == 1) - (d == 3);
+    const int fwx = x + fx, fwy = y + fy;
+    const bool inb = fwx >= 0 && fwx < W && fwy >= 0 && fwy < H;
+    const int fidx = fwx * H + fwy;
+    const int fval = inb ? g[fidx] : kWallPacked;  // before write
+    const int ftype = fval & 15, fcolor = (fval >> 4) & 7,
+              fstate = (fval >> 7) & 3;
+    const bool carrying = (carry & 15) != kEmpty;
+    const bool can_overlap = ftype == kEmpty || ftype == kFloor ||
+                             ftype == kGoal || ftype == kLava ||
+                             (ftype == kDoor && fstate == kOpen);
+    const bool fwd = act == 2;
+    const bool move = fwd && can_overlap && inb;
+    const bool hits_goal = fwd && ftype == kGoal;
+    const bool terminated = hits_goal || (fwd && ftype == kLava);
+    const float rew =
+        hits_goal ? __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn(
+                                                  (float)sc,
+                                                  (float)a.max_steps)))
+                  : 0.0f;
+    const bool do_pickup = act == 3 && !carrying &&
+                           (ftype == kKey || ftype == kBall || ftype == kBox);
+    const bool do_drop = act == 4 && ftype == kEmpty && carrying;
+    const bool is_toggle = act == 5;
+    const bool is_door = ftype == kDoor, is_box = ftype == kBox;
+    const bool has_key =
+        (carry & 15) == kKey && ((carry >> 4) & 7) == fcolor;
+    const int toggled = fstate == kLocked
+                            ? (has_key ? kOpen : kLocked)
+                            : (fstate == kOpen ? kClosed : kOpen);
+    const int door_cell = (fval & ~(3 << 7)) | (toggled << 7);
+    const int cont_type = (fval >> 9) & 15, cont_color = (fval >> 13) & 7;
+    const int contents =
+        cont_type != 0 ? (cont_type | (cont_color << 4)) : kEmpty;
+    int new_fwd = fval;
+    if (do_pickup) new_fwd = kEmpty;
+    if (do_drop) new_fwd = carry;
+    if (is_toggle && is_door) new_fwd = door_cell;
+    if (is_toggle && is_box) new_fwd = contents;
+    const bool writes =
+        inb && (do_pickup || do_drop || (is_toggle && (is_door || is_box)));
+    carry = do_pickup ? fval : (do_drop ? kEmpty : carry);
+    if (move) { x = fwx; y = fwy; }
+    d = nd;
+    te = terminated;
+    tr = sc >= a.max_steps;
+    const bool done = te || tr;
+    if (active && lg == 0) {
       const long long o = (long long)t * B + b;
       a.reward[o] = rew;
       a.term[o] = te;
       a.trunc[o] = tr;
+    }
+    __syncwarp();  // the group has read the front cell and the last window
+    // a reset row replaces the whole grid, the front cell included
+    if (writes && lg == 0 && !(RESET && done)) {
+      g[fidx] = with_clear(new_fwd);
+      unpack5(new_fwd, bytes + 5 * fidx);
+    }
 
-      // --- broadcast reset row into finished envs, before the obs ------
-      if (RESET && (te || tr)) {
-        const int32_t* rg = a.reset_grid + (long long)t * NC;
-        for (int c = 0; c < NC; ++c) g[c * kEnvs] = rg[c];
-        const int32_t* rs = a.reset_scal + (long long)t * kNScal;
-        x = rs[0]; y = rs[1]; d = rs[2]; carry = rs[3]; sc = rs[4];
-        te = rs[5]; tr = rs[6];
+    // --- broadcast reset row into finished envs, before the obs --------
+    if (RESET && done) {
+      const int32_t* rg = a.reset_grid + (long long)t * NC;
+      for (int c = lg; c < NC; c += G) {
+        const int p = rg[c];
+        g[c] = with_clear(p);
+        unpack5(p, bytes + 5 * c);
       }
+      const int32_t* rs = a.reset_scal + (long long)t * kNScal;
+      x = rs[0]; y = rs[1]; d = rs[2]; carry = rs[3]; sc = rs[4];
+      te = rs[5]; tr = rs[6];
+    }
+    __syncwarp();
 
-      // --- observation on the new state (core/obs.py::gen_obs) ---------
-      const int ofx = (d == 0) - (d == 2), ofy = (d == 1) - (d == 3);
-      const int orx = -ofy, ory = ofx;
-      const int tlx = x + ofx * (V - 1) - orx * hs;
-      const int tly = y + ofy * (V - 1) - ory * hs;
-      int u[VV];
+    // --- observation on the new state (core/obs.py::gen_obs) -----------
+    // view cell (vx, vy) is world (tlx + orx*vx - ofx*vy, tly + ory*vx -
+    // ofy*vy); out of the grid it reads as a grey wall
+    const int ofx = (d == 0) - (d == 2), ofy = (d == 1) - (d == 3);
+    const int orx = -ofy, ory = ofx;
+    const int tlx = x + ofx * (V - 1) - orx * hs;
+    const int tly = y + ofy * (V - 1) - ory * hs;
+    // Rows j from the agent's row up: the lanes read the row's cells, one
+    // ballot per G cells gives the row's transparency mask (bit vx = view
+    // cell (vx, j)), every lane runs the row's flood on it, and the row's
+    // observation words follow from the row's visibility. No branches, so
+    // the unrolled rows' reads go ahead of the floods.
+    unsigned seed = 1u << hs;
 #pragma unroll
-      for (int vx = 0; vx < V; ++vx) {
+    for (int j = V - 1; j >= 0; --j) {
+      const int rx = tlx - ofx * j, ry = tly - ofy * j;  // view cell (0, j)
+      int u[kIter];
+      unsigned tb = 0;
 #pragma unroll
-        for (int vy = 0; vy < V; ++vy) {
-          const int wx = tlx + orx * vx - ofx * vy;
-          const int wy = tly + ory * vx - ofy * vy;
-          const bool in = wx >= 0 && wx < W && wy >= 0 && wy < H;
-          u[vx * V + vy] = in ? g[(wx * H + wy) * kEnvs] : kWallPacked;
+      for (int i = 0; i < kIter; ++i) {
+        if (i * G < V) {
+          const int vx = i * G + lg;
+          const int wx = rx + orx * vx, wy = ry + ory * vx;
+          const bool in = vx < V && (unsigned)wx < (unsigned)W &&
+                          (unsigned)wy < (unsigned)H;
+          int c = kWallPacked;  // out of the grid: a grey wall
+          if (in) c = g[wx * H + wy];
+          u[i] = c;
+          tb |= group_bits<G>(c & kClear, base) << (i * G);
         }
       }
-      int rows[V];
-      if (a.see_through) {
+      // visibility on the raw window (before the overlay).
+      // pass 1, ascending x: m[i] = seed[i] | (m[i-1] & t[i-1]). A seed runs
+      // up through the transparent cells above it: adding its first step
+      // `up` to the run's mask P carries through the run and clears it.
+      const unsigned P = (tb << 1) & full;
+      const unsigned up = (seed << 1) & P;
+      const unsigned m1 = seed | up | (P & ~(P + up));
+      // pass 2, descending x: m[i] |= m[i+1] & t[i+1], the same on the
+      // bit-reversed row
+      const int rev = 32 - V;
+      const unsigned rP = ((__brev(tb) >> rev) << 1) & full;
+      const unsigned rm = __brev(m1) >> rev;
+      const unsigned rup = (rm << 1) & rP;
+      const unsigned m2 = __brev(rm | rup | (rP & ~(rP + rup))) >> rev;
+      // seeds of the row above: a visited transparent cell marks the cell
+      // above it and that cell's left/right neighbour
+      const unsigned e = m1 & tb & (full >> 1);
+      const unsigned f = m2 & tb & (full ^ 1);
+      seed = (e | ((e << 1) & full)) | (f | (f >> 1));
+      const unsigned m = a.see_through ? full : m2;
 #pragma unroll
-        for (int j = 0; j < V; ++j) rows[j] = full;
-      } else {
-        // visibility on the raw window (before the overlay): bit x of row
-        // j = view cell (x, j); rows swept from the agent's row upwards
-        int seed = 1 << hs;
-#pragma unroll
-        for (int j = V - 1; j >= 0; --j) {
-          int tb = 0;
-#pragma unroll
-          for (int vx = 0; vx < V; ++vx) {
-            const int c = u[vx * V + j];
-            const int typ = c & 15;
-            const bool opaque =
-                typ == kWall || (typ == kDoor && ((c >> 7) & 3) != kOpen);
-            tb |= (!opaque) << vx;
-          }
-          int m = seed;
-          int T = (tb << 1) & full;
-#pragma unroll
-          for (int s = 1; s < V; s *= 2) {
-            m |= (m << s) & T;
-            T &= (T << s) & full;
-          }
-          const int m1 = m;
-          int U = tb >> 1;
-#pragma unroll
-          for (int s = 1; s < V; s *= 2) {
-            m |= (m >> s) & U;
-            U &= U >> s;
-          }
-          rows[j] = m;
-          const int e = m1 & tb & (full >> 1);
-          const int f = m & tb & (full ^ 1);
-          seed = (e | ((e << 1) & full)) | (f | (f >> 1));
-        }
-      }
-      u[hs * V + V - 1] = carry;  // carried-object overlay
-#pragma unroll
-      for (int vx = 0; vx < V; ++vx) {
-#pragma unroll
-        for (int vy = 0; vy < V; ++vy) {
-          const int k = vx * V + vy;
-          const int val = ((rows[vy] >> vx) & 1) ? (u[k] & 0x1FF) : 0;
-          if (a.native_layout)  // (T, V*V, B): already coalesced
-            a.obs[((long long)t * VV + k) * B + b] = val;
-          else
-            my_stage[k] = val;
+      for (int i = 0; i < kIter; ++i) {
+        const int vx = i * G + lg;
+        if (i * G < V) {
+          // carried-object overlay at the agent's cell
+          const int c = j == V - 1 && vx == hs ? carry : u[i];
+          const int val = (m >> vx) & 1 ? c & 0x1FF : 0;
+          if (vx < V) my_obs[vx * V + j] = val;
         }
       }
     }
+    // the warp's envs' words of step t, written by the whole warp: in the
+    // public layout (B, V*V) one contiguous run, in the native (V*V, B) one
+    // run of the warp's envs per word
+    __syncwarp();
+    const int lane = threadIdx.x & 31;
     if (!a.native_layout) {
-      // the block's (n, V*V) rows of step t are one contiguous run
-      __syncthreads();
-      int* dst = a.obs + ((long long)t * B + b0) * VV;
-#pragma unroll 7
-      for (int i = tid; i < n * VV; i += kEnvs) {
-        const int e = i / VV;
-        dst[i] = stage[e * RS + i - e * VV];
+      int32_t* dst = a.obs + ((long long)t * B + warp_b) * VV;
+#pragma unroll 4
+      for (int i = lane; i < warp_words; i += 32) dst[i] = warp_obs[i];
+    } else {
+      const int ne = warp_words / VV;
+      int32_t* dst = a.obs + (long long)t * VV * B + warp_b;
+#pragma unroll 4
+      for (int i = lane; i < warp_words; i += 32) {
+        const int k = i / ne, e = i - k * ne;
+        dst[(long long)k * B + e] = warp_obs[e * VV + k];
       }
-      __syncthreads();
     }
   }
 
-  // --- state out ---------------------------------------------------------
+  // --- state out: the grid bytes were kept current -----------------------
+  __syncwarp();
   if (active) {
-    unpack_row(g, reinterpret_cast<uint8_t*>(my_stage), NC);
-    a.pos_out[2 * b] = x;
-    a.pos_out[2 * b + 1] = y;
-    a.dir_out[b] = d;
-    unpack5(carry, a.carry_out + 5 * b);
-    a.step_out[b] = sc;
-    a.term_out[b] = te;
-    a.trunc_out[b] = tr;
+    copy_grid<G>(a.grid_out + b * RB, bytes, RB, a.vec16, lg);
+    if (lg == 0) {
+      a.pos_out[2 * b] = x;
+      a.pos_out[2 * b + 1] = y;
+      a.dir_out[b] = d;
+      unpack5(carry, a.carry_out + 5 * b);
+      a.step_out[b] = sc;
+      a.term_out[b] = te;
+      a.trunc_out[b] = tr;
+    }
   }
-  __syncthreads();
-  copy_rows<false>(a.grid_out + b0 * RB, stage, n, RB, RS);
 }
 
-template <int V, bool RESET>
+template <int G, int VC, bool RESET>
 int launch(const Args& a, cudaStream_t stream) {
-  const int nc = a.W * a.H;
-  const size_t smem = (size_t)(nc + stage_words(nc, V)) * kEnvs * sizeof(int);
-  if (smem > 48 * 1024) {
+  const Layout L(a.W * a.H, a.V, a.envs);
+  auto kernel = fused_step_kernel<G, VC, RESET>;
+  if (L.bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_step_kernel<V, RESET>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (a.B + kEnvs - 1) / kEnvs;
-  fused_step_kernel<V, RESET><<<blocks, kEnvs, smem, stream>>>(a);
+  const int blocks = (a.B + a.envs - 1) / a.envs;
+  kernel<<<blocks, a.envs * G, L.bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <int G, bool RESET>
+int by_view(const Args& a, cudaStream_t s) {
+  return a.V == 7 ? launch<G, 7, RESET>(a, s) : launch<G, 0, RESET>(a, s);
+}
+
 template <bool RESET>
-int dispatch(const Args& a, int view_size, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (view_size) {
-    case 3: return launch<3, RESET>(a, s);
-    case 5: return launch<5, RESET>(a, s);
-    case 7: return launch<7, RESET>(a, s);
-    default: return -1;
+int dispatch(const Args& a, cudaStream_t s) {
+  switch (a.G) {
+    case 1: return by_view<1, RESET>(a, s);
+    case 2: return by_view<2, RESET>(a, s);
+    case 4: return by_view<4, RESET>(a, s);
+    case 8: return by_view<8, RESET>(a, s);
+    case 16: return by_view<16, RESET>(a, s);
+    case 32: return by_view<32, RESET>(a, s);
+    default: return kBadLaunch;
   }
 }
 
@@ -381,9 +447,11 @@ int dispatch(const Args& a, int view_size, void* stream) {
 
 extern "C" {
 
-// Launches on `stream` and returns 0, -1 for an unsupported view size, or
-// the CUDA error of the launch. The grid rows may be any size; shared
-// memory above 48 KB per block is opted into (up to the card's limit).
+// Launches on `stream` and returns 0, -1 for a view size or launch
+// geometry the kernel does not take (view size odd 3..31; G lanes per env
+// a power of two up to 32; envs_per_block * G a multiple of 32, at most
+// 256), or the CUDA error of the launch. Shared memory above 48 KB per
+// block is opted into (up to the card's limit).
 int fused_step_launch(
     const void* grid_in, const void* pos_in, const void* dir_in,
     const void* carry_in, const void* step_in, const void* actions,
@@ -392,7 +460,12 @@ int fused_step_launch(
     void* grid_out, void* pos_out, void* dir_out, void* carry_out,
     void* step_out, void* term_out, void* trunc_out,
     int B, int T, int W, int H, int view_size, int max_steps,
-    int see_through, int native_layout, void* stream) {
+    int see_through, int native_layout, int group_lanes, int envs_per_block,
+    void* stream) {
+  const int threads = envs_per_block * group_lanes;
+  if (view_size < 3 || view_size > 31 || view_size % 2 == 0 ||
+      envs_per_block < 1 || threads % 32 != 0 || threads > kMaxThreads)
+    return kBadLaunch;
   Args a;
   a.grid_in = static_cast<const uint8_t*>(grid_in);
   a.pos_in = static_cast<const int32_t*>(pos_in);
@@ -413,16 +486,23 @@ int fused_step_launch(
   a.step_out = static_cast<int32_t*>(step_out);
   a.term_out = static_cast<uint8_t*>(term_out);
   a.trunc_out = static_cast<uint8_t*>(trunc_out);
-  a.B = B; a.T = T; a.W = W; a.H = H; a.max_steps = max_steps;
+  a.B = B; a.T = T; a.W = W; a.H = H; a.V = view_size;
+  a.max_steps = max_steps;
   a.see_through = see_through; a.native_layout = native_layout;
-  return a.reset_grid != nullptr
-             ? dispatch<true>(a, view_size, stream)
-             : dispatch<false>(a, view_size, stream);
+  a.G = group_lanes; a.envs = envs_per_block;
+  const int rb = W * H * 5;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(grid_in) |
+                          reinterpret_cast<uintptr_t>(grid_out);
+  a.vec16 = rb % 16 == 0 && align % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.reset_grid != nullptr ? dispatch<true>(a, s)
+                                 : dispatch<false>(a, s);
 }
 
 const char* fused_step_error_string(int code) {
-  return code == -1 ? "unsupported view size"
-                    : cudaGetErrorString(static_cast<cudaError_t>(code));
+  return code == kBadLaunch
+             ? "unsupported view size or launch geometry"
+             : cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

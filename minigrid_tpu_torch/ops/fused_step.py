@@ -2,8 +2,9 @@
 PyTorch version.
 
 Counterpart of ``minigrid_tpu/ops/fused_step.py``, whose Pallas kernel it
-replaces with ``csrc/fused_step.cu`` (one thread per env, the env's packed
-grid in shared memory, scalars in registers across the T steps). On the card
+replaces with ``csrc/fused_step.cu`` (a group of G lanes per env, the env's
+packed grid in shared memory, scalars in registers across the T steps; the
+launch geometry is :func:`launch_geometry`). On the card
 this is the production step of every env without step hooks
 (:func:`require_core_dynamics`): ``MiniGridEnv.step`` and the pooled
 auto-reset go through it.
@@ -37,8 +38,15 @@ from minigrid_tpu_torch.core.step import step_core
 from minigrid_tpu_torch.core.types import EnvParams, EnvState
 
 NSCAL = 8  # x, y, dir, carrying, step_count, terminated, truncated, pad
-VIEW_SIZES = (3, 5, 7)  # the kernel's compiled view sizes
-ENVS_PER_BLOCK = 32  # one warp per block (csrc/fused_step.cu kEnvs)
+MIN_VIEW, MAX_VIEW = 3, 31  # odd view sizes the kernel takes (32-bit rows)
+GROUP_LANES = (1, 2, 4, 8, 16, 32)  # lanes per env the kernel is built for
+MAX_THREADS = 256  # threads per block (csrc/fused_step.cu kMaxThreads)
+# G is raised until the batch gives every SM this many warps: one for each
+# of its four schedulers. Lanes beyond that repeat an env's serial work (the
+# transition, the flood) for nothing: on an H100 at B=4096, G=8 (7.8 warps
+# per SM) ran 151.7 us per T=128 launch and G=16 (15.5) 231.2 us
+# (port_probes/rollout_profile.py sweep, PERF.md).
+MIN_WARPS_PER_SM = 4
 SMEM_LIMIT = 227 * 1024  # shared memory one block may opt into on sm_90
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -164,7 +172,7 @@ class FusedStepKernel:
             path, self.build_log = build()
             lib = ctypes.CDLL(str(path))
             lib.fused_step_launch.argtypes = (
-                [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
+                [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
                 + [ctypes.c_void_p])
             lib.fused_step_launch.restype = ctypes.c_int
             lib.fused_step_error_string.argtypes = [ctypes.c_int]
@@ -205,12 +213,77 @@ def build() -> tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
-def shared_memory_bytes(num_cells: int, view_size: int) -> int:
-    """Shared memory of one block (csrc/fused_step.cu ``launch``): the
-    packed grids plus one staging row per env, the larger of the grid's
-    bytes and the V*V observation words, rounded up to an odd word count."""
-    row = max((num_cells * 5 + 3) // 4, view_size * view_size) | 1
-    return (num_cells + row) * ENVS_PER_BLOCK * 4
+def check_view_size(view_size: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes ``view_size``."""
+    if not (MIN_VIEW <= view_size <= MAX_VIEW and view_size % 2 == 1):
+        raise ValueError(f"the kernel takes odd view sizes {MIN_VIEW}.."
+                         f"{MAX_VIEW}, got {view_size}")
+
+
+def shared_memory_bytes(num_cells: int, view_size: int,
+                        envs_per_block: int) -> int:
+    """Shared memory of one block (csrc/fused_step.cu ``Layout``): per env
+    the packed cells (an odd word count) and the V*V observation words of
+    a step and, from a 16-byte boundary, the grid bytes rounded up to 16."""
+    words = envs_per_block * ((num_cells | 1) + view_size ** 2)
+    return (words + 3) // 4 * 16 + envs_per_block * (
+        (5 * num_cells + 15) // 16 * 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchGeometry:
+    group_lanes: int       # G lanes per env
+    envs_per_block: int
+    threads: int           # per block
+    blocks: int
+    shared_memory_bytes: int  # per block
+
+
+def pick_group_lanes(batch: int, sm_count: int) -> int:
+    """The smallest G that gives every SM ``MIN_WARPS_PER_SM`` warps at
+    this batch (32 when even that does not)."""
+    for g in GROUP_LANES:
+        if batch * g >= MIN_WARPS_PER_SM * 32 * sm_count:
+            return g
+    return GROUP_LANES[-1]
+
+
+def launch_geometry(batch: int, width: int, height: int, view_size: int,
+                    sm_count: int, group_lanes: int | None = None
+                    ) -> LaunchGeometry:
+    """Launch geometry of the kernel: G lanes per env (``group_lanes``, or
+    :func:`pick_group_lanes`), ``MAX_THREADS // G`` envs per block, halved
+    while the block's shared memory exceeds the opt-in limit (a block keeps
+    at least one full warp). Raises ``ValueError`` for a view size, G or
+    grid the kernel does not take."""
+    check_view_size(view_size)
+    g = pick_group_lanes(batch, sm_count) if group_lanes is None \
+        else group_lanes
+    if g not in GROUP_LANES:
+        raise ValueError(f"group_lanes must be one of {GROUP_LANES}, got {g}")
+    nc = width * height
+    envs, least = MAX_THREADS // g, max(1, 32 // g)
+    while envs > least and shared_memory_bytes(nc, view_size,
+                                               envs) > SMEM_LIMIT:
+        envs //= 2
+    smem = shared_memory_bytes(nc, view_size, envs)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a {width}x{height} grid does not fit the kernel's "
+                         f"shared memory ({smem} bytes for {envs} envs)")
+    return LaunchGeometry(g, envs, envs * g, -(-batch // envs), smem)
+
+
+_SM_COUNTS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNTS[idx]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape):
@@ -226,24 +299,20 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
 
 
 def _fused_rollout_cuda(params, states, actions, native_layout, reset_grid,
-                        reset_scal):
+                        reset_scal, group_lanes: int | None = None):
     W, H, V = params.width, params.height, params.view_size
     NC = W * H
     T, B = actions.shape
-    if V not in VIEW_SIZES:
-        raise ValueError(f"the kernel is compiled for view sizes "
-                         f"{VIEW_SIZES}, got {V}")
+    check_view_size(V)
     if T < 1 or B < 1:
         raise ValueError(f"empty launch: T={T}, B={B}")
-    if shared_memory_bytes(NC, V) > SMEM_LIMIT:
-        raise ValueError(f"a {W}x{H} grid does not fit the kernel's shared "
-                         f"memory ({shared_memory_bytes(NC, V)} bytes)")
+    _check(actions, "actions", torch.int32, (T, B))
+    geo = launch_geometry(B, W, H, V, sm_count(actions.device), group_lanes)
     _check(states.grid, "grid", torch.uint8, (B, W, H, 5))
     _check(states.agent_pos, "agent_pos", torch.int32, (B, 2))
     _check(states.agent_dir, "agent_dir", torch.int32, (B,))
     _check(states.carrying, "carrying", torch.uint8, (B, 5))
     _check(states.step_count, "step_count", torch.int32, (B,))
-    _check(actions, "actions", torch.int32, (T, B))
     if reset_grid is not None:
         _check(reset_grid, "reset_grid", torch.int32, (T, NC))
         _check(reset_scal, "reset_scal", torch.int32, (T, NSCAL))
@@ -273,7 +342,8 @@ def _fused_rollout_cuda(params, states, actions, native_layout, reset_grid,
         ptr(out.carrying), ptr(out.step_count), ptr(out.terminated),
         ptr(out.truncated),
         B, T, W, H, V, params.max_steps, int(params.see_through_walls),
-        int(native_layout), torch.cuda.current_stream(dev).cuda_stream)
+        int(native_layout), geo.group_lanes, geo.envs_per_block,
+        torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         msg = lib.fused_step_error_string(code).decode()
         raise RuntimeError(f"fused_step kernel launch failed: {msg}")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's time goes on one GPU: the main-path rollout under
-``torch.profiler``, and the fused step kernel at the main path's batch and
-at a batch that fills the card.
+``torch.profiler``, the fused step kernel at the main path's batch and at a
+batch that fills the card, and a sweep of the kernel's group width G.
 
     python3 port_probes/rollout_profile.py [--steps 16]
 
@@ -10,7 +10,9 @@ Prints the card, the host time per rollout step, the device busy share
 kernels by total time, and the kernel's time per launch (CUDA events) at
 T=1 and T=128, with the public and the kernel-native observation layout,
 and pure stepping throughput at B=4096 and B=65536 (device time, one T=128
-launch). Needs a CUDA device.
+launch). Then the sweep: the kernel's device time per launch (profiler) at
+every group width G, at B=4096, 16384 and 65536, T=1 with a reset row and
+T=128, beside the G that ``launch_geometry`` picks. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,30 +38,16 @@ def busy_share(events, wall_us: float) -> float:
     return covered / wall_us
 
 
-def main() -> int:
+def profile_rollout(env, g, pool, B: int, T: int, card: str) -> None:
+    """The rollout under the profiler, then the kernel alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=16)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA device", file=sys.stderr)
-        return 1
-
-    import minigrid_tpu_torch as mt
+    from chip_smoke import device_ms
     from minigrid_tpu_torch.models.actor_critic import ActorCritic, init_params
     from minigrid_tpu_torch.models.ppo import rollout, sample_rollout_noise
     from minigrid_tpu_torch.ops import fused_step as F
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(f"card: {card}")
-    B, T = 4096, args.steps
-    env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
-    g = env.generator(0)
-    pool = env.make_pool(g, 1024)
     obs, st = env.reset_staggered(g, B)
     model = init_params(ActorCritic(device="cuda"), g)
     st, obs, _ = rollout(model, env, st, obs,
@@ -111,9 +99,6 @@ def main() -> int:
         print(f"kernel, {'native' if native else 'public'} obs layout: "
               f"T=1 with reset row {t1 * 1e3:.2f} us, T=128 "
               f"{t128 * 1e3:.2f} us (CUDA events, back to back; {card})")
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    from chip_smoke import device_ms
-
     for batch in (4096, 65536):
         _, stb = env.reset(g, batch)
         ab = torch.randint(0, 7, (128, batch), generator=g, device="cuda",
@@ -122,6 +107,58 @@ def main() -> int:
             env.params, stb, ab, False, None, None), 5)
         print(f"kernel device time, B={batch} T=128: {ms * 1e3:.1f} us = "
               f"{batch * 128 / ms * 1e3:.3e} env-steps/s ({card})")
+
+
+def sweep_group_lanes(env, g, pool, card: str) -> None:
+    """Device time per launch at every G, three batches, T=1 and T=128."""
+    import torch
+
+    from chip_smoke import device_ms
+    from minigrid_tpu_torch.ops import fused_step as F
+
+    sms = F.sm_count(torch.device("cuda"))
+    row = pool.rows(0)
+    print(f"group-width sweep, DoorKey-8x8, device time per launch in us "
+          f"({card}, {sms} SMs):")
+    for batch in (4096, 16384, 65536):
+        _, stb = env.reset(g, batch)
+        for steps in (1, 128):
+            ab = torch.randint(0, 7, (steps, batch), generator=g,
+                               device="cuda", dtype=torch.int32)
+            rg, rs = (row.grid, row.scal) if steps == 1 else (None, None)
+            times = []
+            for G in F.GROUP_LANES:
+                ms = device_ms(lambda: F._fused_rollout_cuda(
+                    env.params, stb, ab, False, rg, rs, G),
+                    50 if steps == 1 else 5)
+                times.append(f"G={G} {ms * 1e3:.2f}")
+            picked = F.launch_geometry(batch, 8, 8, 7, sms).group_lanes
+            reset = " with reset row" if steps == 1 else ""
+            print(f"  B={batch} T={steps}{reset}: {', '.join(times)}; "
+                  f"picked G={picked}")
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=16)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+
+    import minigrid_tpu_torch as mt
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}")
+    env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
+    g = env.generator(0)
+    pool = env.make_pool(g, 1024)
+    profile_rollout(env, g, pool, 4096, args.steps, card)
+    sweep_group_lanes(env, g, pool, card)
     return 0
 
 

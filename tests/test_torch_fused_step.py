@@ -8,6 +8,8 @@ The CUDA kernel itself runs only on the card
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -37,19 +39,28 @@ CASES = [
 ]
 
 
+# the CASES at the default view size, and DoorKey-8x8 at V=9 with the
+# params ViewSizeWrapper(env, 9) renders with
+VIEW_CASES = [pytest.param(e, k, 7, id=f"{e}-{k}") for e, k in CASES] + [
+    pytest.param("MiniGrid-DoorKey-8x8-v0", "uniform", 9,
+                 id="MiniGrid-DoorKey-8x8-v0-uniform-view9")]
+
+
 @pytest.mark.parametrize("native", [False, True])
-@pytest.mark.parametrize("env_id,kind", CASES)
-def test_plain_matches_jax_pallas_kernel(env_id, kind, native):
+@pytest.mark.parametrize("env_id,kind,view", VIEW_CASES)
+def test_plain_matches_jax_pallas_kernel(env_id, kind, view, native):
     B, T = 128, 8
     env, jst = jax_states(env_id, B)
+    params = dataclasses.replace(env.params, view_size=view)
     actions = action_stream(kind, T, B)
     j_new, j_obs, j_rew, j_te, j_tr = j_fused_rollout(
-        env.params, jst, jnp.asarray(actions), T_tile=8, interpret=True,
+        params, jst, jnp.asarray(actions), T_tile=8, interpret=True,
         native_layout=native)
     launches = KERNEL.launches
     p_new, p_obs, p_rew, p_te, p_tr = fused_rollout(
-        env.params, export(jst), torch.from_numpy(actions),
+        params, export(jst), torch.from_numpy(actions),
         native_layout=native)
+    assert p_obs.shape[-1] == (B if native else view)
     assert KERNEL.launches == launches  # CPU tensors: the plain version
     np.testing.assert_array_equal(p_obs.numpy(), np.asarray(j_obs))
     np.testing.assert_allclose(p_rew.numpy(), np.asarray(j_rew), rtol=1e-6)
@@ -171,21 +182,74 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_shared_memory_and_build_flags():
-    # DoorKey-8x8: 64 cells + an 81-word staging row per env, 32 envs
-    assert F.shared_memory_bytes(64, 7) == (64 + 81) * 32 * 4
-    assert F.shared_memory_bytes(25, 7) == (25 + 49) * 32 * 4
-    assert F.shared_memory_bytes(19 * 19, 7) <= F.SMEM_LIMIT  # FourRooms
-    assert F.shared_memory_bytes(32 * 32, 7) > F.SMEM_LIMIT
+    # per env: the packed cells (an odd word count) and the V*V observation
+    # words, then from a 16-byte boundary the grid bytes rounded up to 16
+    assert F.shared_memory_bytes(64, 7, 16) == 16 * (65 + 49) * 4 + 16 * 320
+    assert F.shared_memory_bytes(25, 7, 32) == 32 * (25 + 49) * 4 + 32 * 128
+    assert F.shared_memory_bytes(25, 9, 1) == 108 * 4 + 128  # 106 words
+    # a 32x32 grid fits a block of 8 envs at G=32, not the 32 envs of a
+    # one-lane warp
+    assert F.launch_geometry(64, 32, 32, 7, 132, 32).envs_per_block == 8
+    with pytest.raises(ValueError, match="shared memory"):
+        F.launch_geometry(64, 32, 32, 7, 132, 1)
     env = minigrid_tpu_torch.make("MiniGrid-Empty-8x8-v0", device=CPU)
     _, st = env.reset(env.generator(0), 2)
-    with pytest.raises(ValueError, match="view sizes"):
-        F._fused_rollout_cuda(env.replace_params(view_size=9).params, st,
+    with pytest.raises(ValueError, match="view size"):
+        F._fused_rollout_cuda(env.replace_params(view_size=33).params, st,
                               torch.zeros((1, 2), dtype=torch.int32), False,
                               None, None)
+    for bad in (8, 33, 1):
+        with pytest.raises(ValueError, match="view size"):
+            F.check_view_size(bad)
+        with pytest.raises(ValueError, match="view size"):
+            F.launch_geometry(64, 8, 8, bad, 132)
+    with pytest.raises(ValueError, match="group_lanes"):
+        F.launch_geometry(64, 8, 8, 7, 132, 3)
     flags = " ".join(F.NVCC_FLAGS)
     assert "sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert F.SOURCE.exists()
+
+
+@pytest.mark.parametrize("group_lanes", [None, *F.GROUP_LANES])
+def test_launch_geometry_fits_every_env_and_view(group_lanes):
+    """Every registered env at every odd view size 3..31: a valid block
+    (whole warps, at most MAX_THREADS threads) under the shared-memory
+    limit, covering the batch."""
+    sizes = set()
+    for env_id in minigrid_tpu_torch.registered_ids():
+        p = minigrid_tpu_torch.make(env_id, device=CPU).params
+        sizes.add((p.width, p.height))
+    for w, h in sorted(sizes):
+        for v in range(3, 32, 2):
+            for batch in (1, 1001, 4096, 65536):
+                geo = F.launch_geometry(batch, w, h, v, 132, group_lanes)
+                assert geo.shared_memory_bytes <= F.SMEM_LIMIT
+                assert geo.shared_memory_bytes == F.shared_memory_bytes(
+                    w * h, v, geo.envs_per_block)
+                assert geo.threads == geo.envs_per_block * geo.group_lanes
+                assert geo.threads % 32 == 0
+                assert geo.threads <= F.MAX_THREADS
+                assert geo.blocks * geo.envs_per_block >= batch
+                assert (geo.blocks - 1) * geo.envs_per_block < batch
+
+
+def test_launch_geometry_fills_the_card():
+    """B=4096 (the rollout's batch) on an H100's 132 SMs: G=8, blocks of 8
+    warps on 128 SMs (7.8 warps per SM over all 132); B=65536 needs no
+    more than one lane per env. The choice depends on its arguments
+    alone."""
+    geo = F.launch_geometry(4096, 8, 8, 7, 132)
+    assert geo.group_lanes >= 8 and geo.threads // 32 >= 8
+    assert geo.blocks >= 128
+    assert geo.blocks * geo.threads / 32 / 132 >= F.MIN_WARPS_PER_SM
+    assert geo == F.launch_geometry(4096, 8, 8, 7, 132)
+    big = F.launch_geometry(65536, 8, 8, 7, 132)
+    assert big.group_lanes == 1
+    picks = [F.pick_group_lanes(b, 132) for b in (64, 4096, 8192, 65536)]
+    assert picks == [32, 8, 4, 1]
+    assert picks == [F.pick_group_lanes(b, 132) for b in (64, 4096, 8192,
+                                                           65536)]
 
 
 def test_require_core_dynamics_rejects_hooked_envs():

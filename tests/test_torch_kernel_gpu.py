@@ -10,8 +10,11 @@ import pytest
 import torch
 
 import minigrid_tpu_torch
-from minigrid_tpu_torch.ops.fused_step import (KERNEL, fused_rollout,
-                                               fused_rollout_reference)
+from minigrid_tpu_torch.ops.fused_step import (GROUP_LANES, KERNEL,
+                                               _fused_rollout_cuda,
+                                               fused_rollout,
+                                               fused_rollout_reference,
+                                               launch_geometry, sm_count)
 
 # interaction-biased action stream of tests/test_fused_step.py
 INTERACT = np.array([0, 1, 2, 2, 3, 4, 5, 5], np.int32)
@@ -35,21 +38,52 @@ def cuda_device():
     ("MiniGrid-DoorKey-16x16-v0", "interact", 1000, True),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, env_id, kind, B, reset):
-    env = minigrid_tpu_torch.make(env_id, device=cuda_device).packed()
+    _check_case(cuda_device, env_id, kind, B, reset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view,B,reset,group_lanes", [
+    (3, 4096, False, None),
+    (9, 4096, False, None),
+    (9, 1001, True, None),
+    (7, 4100, True, None),
+    *[(7, 1001, True, g) for g in GROUP_LANES],
+])
+def test_kernel_view_sizes_and_group_widths_on_card(cuda_device, view, B,
+                                                    reset, group_lanes):
+    """DoorKey-8x8 at other view sizes, at batches that are not a multiple
+    of the envs per block, and at every group width G."""
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0",
+                                  device=cuda_device).packed()
+    env = env.replace_params(view_size=view)
+    if B != 4096:  # a ragged last block
+        geo = launch_geometry(B, 8, 8, view, sm_count(cuda_device),
+                              group_lanes)
+        assert B % geo.envs_per_block != 0
+    _check_case(cuda_device, env, "interact", B, reset, group_lanes)
+
+
+def _check_case(device, env, kind, B, reset, group_lanes=None, T=32):
+    """One launch of the kernel against the plain version, bit-exact."""
+    if isinstance(env, str):
+        env = minigrid_tpu_torch.make(env, device=device).packed()
     g = env.generator(0)
     _, st = (env.reset_staggered if reset else env.reset)(g, B)
-    T = 32
     rng = np.random.default_rng(1)
     choices = INTERACT if kind == "interact" else np.arange(7)
     actions = torch.from_numpy(choices[rng.integers(0, len(choices), (T, B))]
-                               .astype(np.int32)).to(cuda_device)
+                               .astype(np.int32)).to(device)
     rg = rs = None
     if reset:
         rows = env.make_pool(g, 64).rows(
-            torch.randint(0, 64, (T,), generator=g, device=cuda_device))
+            torch.randint(0, 64, (T,), generator=g, device=device))
         rg, rs = rows.grid, rows.scal
     launches = KERNEL.launches
-    got = fused_rollout(env.params, st, actions, False, rg, rs)
+    if group_lanes is None:
+        got = fused_rollout(env.params, st, actions, False, rg, rs)
+    else:
+        got = _fused_rollout_cuda(env.params, st, actions, False, rg, rs,
+                                  group_lanes)
     torch.cuda.synchronize()
     assert KERNEL.launches == launches + 1
     want = fused_rollout_reference(env.params, st, actions, False, rg, rs)
