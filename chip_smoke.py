@@ -8,17 +8,28 @@ Phases, each fatal on failure:
 1. the card (name, power limit) and the kernel build (ptxas report);
 2. the fused step kernel against its plain PyTorch version on the card,
    bit-exact on every output, for every case below (another view size and
-   every group width G among them);
+   every group width G among them); then its observe entry against plain
+   ``gen_obs`` on states taken after interaction steps, bit-exact;
 3. the main path through the public entry points: DoorKey-8x8 with packed
    observations, a 1024-entry layout pool, 4096 staggered envs, the bf16
    ActorCritic and one 128-step pooled rollout, with the kernel's launch
    count read before and after; then a small rollout replayed through the
-   plain path on the CPU;
-4. timings: the rollout, pure packed stepping, and the kernel's device
+   plain path on the CPU, and the regen, independent-pool and fresh-buffer
+   resets stepped on the card and replayed on the CPU with the same
+   actions and candidate states;
+4. the PPO train step at full width (B=4096, T=128, bf16 hidden=256,
+   PPOConfig defaults) in each reset mode: pooled, fresh, regen, one
+   warm-up step then three timed ones, with both entries' launch counts
+   read before and after; then one rotate epoch of the f32 update on the
+   card against the same epoch on the CPU;
+5. timings: the rollout, pure packed stepping, and the kernel's device
    time per launch (profiler) at T=1 and T=128 for B=4096 and at T=128 for
-   B=65536, with the group width G chosen for each, beside its bound (the
-   larger of the byte and the integer-operation bound) and the plain
-   version's time (CUDA events).
+   B=65536, with the group width G chosen for each, and the observe
+   entry's at B=4096, beside their bounds (the larger of the byte and the
+   integer-operation bound) and the plain versions' times (CUDA events);
+6. learning on the card: the JAX package's guards (Empty-5x5 regen,
+   pooled+packed and fresh, 30 updates; DoorKey-5x5, 120 updates at
+   B=256), then the greedy success rate of the DoorKey-5x5 policy.
 
 The line before the last is the card as ``nvidia-smi`` reports it; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -130,6 +141,47 @@ def bound_ms(nbytes_moved: int, env_steps: int, view_size: int):
                                                            "operations")
 
 
+def observe_bytes(states, obs) -> int:
+    """Bytes the observe entry must move: the state it reads (grid,
+    position, direction, carried cell) and the observations it writes."""
+    return nbytes(states.grid, states.agent_pos, states.agent_dir,
+                  states.carrying, obs)
+
+
+def observe_bound_ms(states, obs, view_size: int):
+    """The observe entry's bound: bytes, or the window read, tests and
+    flood of ``step_ops`` without the transition."""
+    by_bytes = observe_bytes(states, obs) / HBM_BYTES_PER_S * 1e3
+    by_ops = (states.batch_size * (step_ops(view_size) - 30)
+              / INT32_OPS_PER_S * 1e3)
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def clone_generator(g):
+    """A generator in the same state as ``g``: it replays ``g``'s next
+    draws."""
+    import torch
+
+    return torch.Generator(device=g.device).set_state(g.get_state())
+
+
+def assert_same(name, got, want):
+    """Exact equality of two tensors, or of two dicts/EnvStates of them,
+    across devices."""
+    import torch
+
+    if hasattr(got, "tensors"):
+        got, want = got.tensors(), want.tensors()
+    if isinstance(got, dict):
+        for k in want:
+            assert_same(f"{name} {k}", got[k], want[k])
+        return
+    if not torch.equal(got.cpu(), want.cpu()):
+        raise AssertionError(f"{name} differs between the card and the "
+                             f"CPU replay")
+
+
 def compare(name, got, want) -> float:
     """Bit-exact comparison of the kernel's outputs with the plain
     version's; returns the largest absolute difference (0 when equal)."""
@@ -166,10 +218,22 @@ def main() -> int:
     from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
                                                         encode_obs,
                                                         init_params)
-    from minigrid_tpu_torch.models.ppo import rollout, sample_rollout_noise
+    from minigrid_tpu_torch.envs.base import (autoreset_step_select,
+                                              draw_independent_rows,
+                                              independent_candidates,
+                                              random_keys)
+    from minigrid_tpu_torch.models.eval import evaluate_success
+    from minigrid_tpu_torch.models.ppo import (PPOConfig, epoch_minibatches,
+                                               fresh_sizes, gae,
+                                               make_optimizer,
+                                               make_train_step, ppo_update,
+                                               rollout, sample_rollout_noise,
+                                               update_minibatch)
+    from minigrid_tpu_torch.ops import fused_step as F
     from minigrid_tpu_torch.ops.fused_step import (
-        GROUP_LANES, KERNEL, _fused_rollout_cuda, fused_rollout_reference,
-        launch_geometry, sm_count)
+        GROUP_LANES, KERNEL, _fused_observe_cuda, _fused_rollout_cuda,
+        fused_observe_reference, fused_rollout_reference, launch_geometry,
+        sm_count)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -254,6 +318,52 @@ def main() -> int:
                           group_lanes=G))
     max_err = max(errs)
 
+    # the observe entry against plain gen_obs, on states after 16
+    # interaction steps (doors opened, keys carried)
+    def check_observe(name, env_id, B, view=None, group_lanes=None):
+        env = mt.make(env_id, device="cuda").packed()
+        if view is not None:
+            env = env.replace_params(view_size=view)
+        g = env.generator(SEED + 3)
+        _, st = env.reset(g, B)
+        choice = torch.tensor([0, 1, 2, 2, 3, 4, 5, 5], device="cuda")
+        acts = choice[torch.randint(0, 8, (16, B), generator=g,
+                                    device="cuda")].to(torch.int32)
+        st = _fused_rollout_cuda(env.params, st, acts, False, None, None)[0]
+        got = _fused_observe_cuda(env.params, st, group_lanes)
+        torch.cuda.synchronize()
+        want = fused_observe_reference(env.params, st)
+        err = (got.double() - want.double()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"observe entry: {name} differs from plain "
+                                 f"gen_obs (max abs {err})")
+        carried = int((st.carrying[:, 0] != 1).sum())
+        print(f"observe == plain: {name} ({carried} envs carrying; max_abs_"
+              f"err {err})")
+        return err
+
+    observe_errs = [
+        check_observe("DoorKey-8x8 B=4096", ENV_ID, BATCH),
+        check_observe("Empty-8x8 B=4096 see-through",
+                      "MiniGrid-Empty-8x8-v0", BATCH),
+        check_observe("DoorKey-5x5 B=4096", "MiniGrid-DoorKey-5x5-v0", BATCH),
+        check_observe("DoorKey-8x8 ragged B=4000", ENV_ID, 4000),
+        check_observe("DoorKey-8x8 view size 9 B=4096", ENV_ID, BATCH,
+                      view=9),
+    ] + [check_observe(f"DoorKey-8x8 G={G} B=1001", ENV_ID, 1001,
+                       group_lanes=G) for G in GROUP_LANES]
+    observe_err = max(observe_errs)
+
+    # from here on the card path must never run the plain observation
+    plain_gen_obs = F.gen_obs
+
+    def gen_obs_on_cpu_only(params, state):
+        if state.grid.is_cuda:
+            raise AssertionError("plain gen_obs ran on CUDA tensors")
+        return plain_gen_obs(params, state)
+
+    F.gen_obs = gen_obs_on_cpu_only
+
     # --- 3. the main path -----------------------------------------------
     env = mt.make(ENV_ID, device="cuda").packed()
     g = env.generator(SEED)
@@ -262,13 +372,13 @@ def main() -> int:
     model = init_params(ActorCritic(hidden=256, dtype=torch.bfloat16,
                                     device="cuda"), g)
     warm = sample_rollout_noise(g, pool, BATCH, 4, model.num_actions)
-    st, obs, _ = rollout(model, env, st, obs, warm)       # cuBLAS warm-up
+    st, obs, _, _ = rollout(model, env, st, obs, warm)    # cuBLAS warm-up
     noise = sample_rollout_noise(g, pool, BATCH, ROLLOUT_LEN,
                                  model.num_actions)
     torch.cuda.synchronize()
     KERNEL.launches = 0
     t0 = time.perf_counter()
-    st, obs, traj = rollout(model, env, st, obs, noise)
+    st, obs, traj, _ = rollout(model, env, st, obs, noise)
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t0
     launches = KERNEL.launches
@@ -301,7 +411,7 @@ def main() -> int:
     sm_obs, sm_st = sm_env.reset_staggered(sg, 64)
     f32 = init_params(ActorCritic(dtype=torch.float32, device="cuda"), sg)
     sm_noise = sample_rollout_noise(sg, sm_pool, 64, 16, f32.num_actions)
-    _, _, sm_traj = rollout(f32, sm_env, sm_st, sm_obs, sm_noise)
+    _, _, sm_traj, _ = rollout(f32, sm_env, sm_st, sm_obs, sm_noise)
     cpu_env = mt.make(ENV_ID, device="cpu").packed()
     cpu_model = ActorCritic(dtype=torch.float32, device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in
@@ -336,7 +446,185 @@ def main() -> int:
     print("small rollout (B=64, T=16, f32) on the card == replay through "
           "the plain path on the CPU")
 
-    # --- 4. timings -----------------------------------------------------
+    # the resets that select a different state into each finished env,
+    # stepped on the card through the public entry points and replayed on
+    # the CPU with the same actions and candidate states: the regenerated
+    # batch and the independent row indices are redrawn from a copy of the
+    # generator, the fresh buffer is copied; small buffer and window so the
+    # fresh mode overflows
+    def replay_resets(mode, B=64, T=16):
+        env = mt.make(ENV_ID, device="cuda").packed()
+        cpu_env = mt.make(ENV_ID, device="cpu").packed()
+        g = env.generator(SEED + 4)
+        _, st = env.reset(g, B)
+        ms = env.params.max_steps
+        st = st.replace(step_count=(ms - 1 - torch.arange(
+            B, device="cuda") % T).to(torch.int32))
+        st_c = st.map(lambda x: x.cpu())
+        pool = env.make_pool(g, 32)
+        buffer, window = env.presample_fresh(g, 48), 8
+        cursor = torch.zeros((), dtype=torch.int32, device="cuda")
+        cursor_c = cursor.cpu()
+        n_done = overflow = 0
+        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        for t in range(T):
+            keys = random_keys(g, (B, 2), "cuda")
+            a = torch.randint(0, 7, (B,), generator=g, device="cuda",
+                              dtype=torch.int32)
+            k_c, a_c = keys.cpu(), a.cpu()
+            if mode == "regen":
+                cand = env._gen_grid(clone_generator(g), B)
+                out = env.step_autoreset(keys, st, a, g)
+                ref = autoreset_step_select(cpu_env, st_c, a_c,
+                                            cand.map(lambda x: x.cpu()))
+            elif mode == "independent":
+                idx = draw_independent_rows(clone_generator(g), pool, B)
+                out = env.step_autoreset_pooled(keys, st, a, pool, g,
+                                                independent=True)
+                ref = autoreset_step_select(
+                    cpu_env, st_c, a_c,
+                    independent_candidates(k_c, pool.to("cpu"), idx.cpu()))
+            else:
+                out = env.step_autoreset_fresh(keys, st, a, buffer, cursor,
+                                               window)
+                ref = cpu_env.step_autoreset_fresh(
+                    k_c, st_c, a_c, buffer.map(lambda x: x.cpu()), cursor_c,
+                    window)
+                assert_same(f"fresh step {t} reset_overflow",
+                            out[5]["reset_overflow"],
+                            ref[5]["reset_overflow"])
+                assert_same(f"fresh step {t} cursor", out[6], ref[6])
+                cursor, cursor_c = out[6], ref[6]
+                overflow += int(out[5]["reset_overflow"])
+            for name, x, y in zip(("obs", "state", "reward", "terminated",
+                                   "truncated"), out[:5], ref[:5]):
+                assert_same(f"{mode} step {t} {name}", x, y)
+            st, st_c = out[1], ref[1]
+            n_done += int((out[3] | out[4]).sum())
+        if (KERNEL.launches - l0, KERNEL.observe_launches - o0) != (T, T):
+            raise AssertionError(f"{mode}: expected {T} step and {T} observe "
+                                 "launches")
+        if n_done < B:
+            raise AssertionError(f"{mode}: only {n_done} resets")
+        extra = (f"; cursor {int(cursor)}, reset_overflow {overflow}"
+                 if mode == "fresh" else "")
+        print(f"{mode} resets (B={B}, T={T}): {n_done} resets, {T} step + "
+              f"{T} observe launches; card == CPU replay{extra}")
+        if mode == "fresh" and overflow == 0:
+            raise AssertionError("the fresh replay never overflowed")
+
+    for mode in ("regen", "independent", "fresh"):
+        replay_resets(mode)
+
+    # --- 4. the train step at full width --------------------------------
+    cfg = PPOConfig()  # B=4096, T=128, 1 epoch of 4 rotate minibatches
+    assert (cfg.num_envs, cfg.rollout_len) == (BATCH, ROLLOUT_LEN)
+    train = {}
+    for mode in ("pooled", "fresh", "regen"):
+        tenv = mt.make(ENV_ID, device="cuda").packed()
+        tg = tenv.generator(SEED + 5)
+        model = init_params(ActorCritic(hidden=256, dtype=torch.bfloat16,
+                                        device="cuda"), tg)
+        opt = make_optimizer(model, cfg)
+        tpool = (tenv.make_pool(tg, POOL_SIZE) if mode == "pooled"
+                 else None)
+        obs, st = tenv.reset_staggered(tg, BATCH)
+        step = make_train_step(tenv, model, cfg, opt, resets=mode)
+        st, obs, _ = step(st, obs, tg, tpool)               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KERNEL.launches = KERNEL.observe_launches = 0
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(3):
+            st, obs, m = step(st, obs, tg, tpool)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 3
+        launches_t = KERNEL.launches, KERNEL.observe_launches
+        want = (3 * ROLLOUT_LEN, 0 if mode == "pooled" else 3 * ROLLOUT_LEN)
+        if launches_t != want:
+            raise AssertionError(f"{mode} train steps: (step, observe) "
+                                 f"launches {launches_t}, expected {want}")
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        for m in metrics:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{mode}: metrics not finite: {m}")
+            if m.get("reset_overflow", 0) != 0:
+                raise AssertionError(f"{mode}: reset_overflow {m}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # where the time goes: the rollout and the update of one more
+        # step, timed apart
+        noise = sample_rollout_noise(tg, tpool, BATCH, ROLLOUT_LEN,
+                                     model.num_actions, device="cuda")
+        n_buf, window = (fresh_sizes(tenv, cfg) if mode == "fresh"
+                         else (None, 32))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, obs, traj, _ = rollout(model, tenv, st, obs, noise, mode, tg,
+                                   n_buf, window)
+        torch.cuda.synchronize()
+        rollout_only = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ppo_update(model, opt, cfg, traj, obs, tg)
+        torch.cuda.synchronize()
+        update_only = time.perf_counter() - t0
+        rate = BATCH * ROLLOUT_LEN / step_s
+        train[mode] = {"env_steps_per_s": rate, "step_s": step_s,
+                       "rollout_s": rollout_only, "update_s": update_only,
+                       "launches_per_step": launches_t[0] // 3,
+                       "observe_launches_per_step": launches_t[1] // 3,
+                       "peak_gib": peak, "metrics": metrics[-1]}
+        print(f"train step, {mode} resets: {rate:.0f} env-steps/s (B={BATCH},"
+              f" T={ROLLOUT_LEN}, bf16 hidden=256; {step_s * 1e3:.1f} ms per "
+              f"step; apart: rollout {rollout_only * 1e3:.1f} ms, update "
+              f"{update_only * 1e3:.1f} ms; "
+              f"{launches_t[0] // 3} step + {launches_t[1] // 3} observe "
+              f"launches per step; peak {peak:.2f} GiB; host clock; {card})")
+        print(f"  metrics of the last step: {json.dumps(metrics[-1])}")
+        if mode == "fresh":
+            print(f"  fresh buffer {n_buf} rows, window {window}")
+        del model, opt, step, st, obs, noise, traj
+    torch.cuda.empty_cache()
+
+    # one rotate epoch of the f32 update on the card and on the CPU, from
+    # the same parameters and the same stored batch
+    cfg_u = PPOConfig(num_envs=256, rollout_len=16)
+    tenv = mt.make(ENV_ID, device="cuda").packed()
+    tg = tenv.generator(SEED + 6)
+    f32 = init_params(ActorCritic(dtype=torch.float32, device="cuda"), tg)
+    cpu_model = ActorCritic(dtype=torch.float32, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               f32.state_dict().items()})
+    u_pool = tenv.make_pool(tg, 64)
+    obs, st = tenv.reset_staggered(tg, 256)
+    noise = sample_rollout_noise(tg, u_pool, 256, 16, f32.num_actions)
+    st, obs, traj, _ = rollout(f32, tenv, st, obs, noise)
+    with torch.no_grad():
+        _, last_value = f32(obs)
+    adv, ret = gae(traj.reward, traj.value, traj.done, last_value,
+                   cfg_u.gamma, cfg_u.gae_lambda)
+    data = dict(traj.obs, action=traj.action, log_prob=traj.log_prob,
+                adv=adv, ret=ret)
+    initial = [p.detach().cpu().clone() for p in f32.parameters()]
+    for m, d in ((f32, data), (cpu_model, {k: v.cpu() for k, v in
+                                           data.items()})):
+        opt = make_optimizer(m, cfg_u)
+        for mb in epoch_minibatches(d, cfg_u, None, offset=1):
+            update_minibatch(m, opt, cfg_u, mb)
+    update_err = max((p.detach().cpu() - q.detach()).abs().max().item()
+                     for p, q in zip(f32.parameters(),
+                                     cpu_model.parameters()))
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(cpu_model.parameters(), initial))
+    print(f"f32 update, one rotate epoch (B=256, T=16): card vs CPU max abs "
+          f"parameter difference {update_err:.3g} (tolerance 1e-4; the "
+          f"parameters moved up to {moved:.3g})")
+    if not update_err <= 1e-4:
+        raise AssertionError(f"card and CPU updates differ by {update_err}")
+    F.gen_obs = plain_gen_obs
+
+    # --- 5. timings -----------------------------------------------------
     rollout_rate = BATCH * ROLLOUT_LEN / rollout_s
     print(f"rollout: {rollout_rate:.0f} env-steps/s (B={BATCH}, "
           f"T={ROLLOUT_LEN}, bf16 ActorCritic, pooled resets; host clock; "
@@ -392,6 +680,16 @@ def main() -> int:
           f"{ms_big * 1e3:.2f} us (bound {bound_big * 1e3:.2f} us by "
           f"{by_big})")
 
+    # the observe entry at B=4096 (the fresh and regen rollouts' shape)
+    run_o = lambda: _fused_observe_cuda(p, st0)
+    ms_o = device_ms(run_o, 200, kernel="fused_observe_kernel")
+    plain_ms_o = cuda_ms(lambda: fused_observe_reference(p, st0), 10)
+    bound_o, by_o = observe_bound_ms(st0, run_o(), V)
+    print(f"  observe entry B={BATCH}, G={groups[f't1_b{BATCH}']}: "
+          f"{ms_o * 1e3:.2f} us (bound {bound_o * 1e3:.2f} us by {by_o}, "
+          f"{observe_bytes(st0, run_o()) / 1e6:.2f} MB; plain version "
+          f"{plain_ms_o * 1e3:.1f} us)")
+
     # pure packed stepping: one T=128 launch per chunk, the state carried
     # from chunk to chunk (host clock around the synchronised chunks)
     env_state = st0
@@ -408,12 +706,66 @@ def main() -> int:
     print(f"pure packed stepping: {pure_rate:.0f} env-steps/s (B={BATCH}, "
           f"T=128 per launch; {card})")
 
+    # --- 6. learning on the card ----------------------------------------
+    def learn(env_id, updates, resets, packed, num_epochs=2, num_envs=128,
+              ent_coef=0.01):
+        """tests/test_learning.py::run_ppo's configuration on the card."""
+        env = mt.make(env_id, device="cuda")
+        if packed:
+            env = env.packed()
+        lcfg = PPOConfig(num_envs=num_envs, rollout_len=64,
+                         num_epochs=num_epochs, num_minibatches=4, lr=1e-3,
+                         ent_coef=ent_coef)
+        g = env.generator(SEED)
+        model = init_params(ActorCritic(hidden=64, device="cuda"), g)
+        opt = make_optimizer(model, lcfg)
+        reset = env.reset if resets == "regen" else env.reset_staggered
+        obs, st = reset(g, num_envs)
+        pool = env.make_pool(g, 256) if resets == "pooled" else None
+        step = make_train_step(env, model, lcfg, opt, resets=resets)
+        rewards = []
+        t0 = time.perf_counter()
+        for u in range(updates):
+            st, obs, m = step(st, obs, g, pool)
+            rewards.append(float(m["mean_reward"]))
+            if pool is not None and u % 8 == 7:
+                pool = env.make_pool(g, 256)
+        return rewards, env, model, time.perf_counter() - t0
+
+    for name, args, kw in (
+            ("Empty-5x5 regen", ("regen", False), {}),
+            ("Empty-5x5 pooled+packed", ("pooled", True), {}),
+            ("Empty-5x5 fresh", ("fresh", True), {"num_epochs": 1})):
+        r, *_, secs = learn("MiniGrid-Empty-5x5-v0", 30, *args, **kw)
+        first, last = sum(r[:5]) / 5, sum(r[-5:]) / 5
+        print(f"learning, {name}: mean reward first5 {first:.4f} -> last5 "
+              f"{last:.4f} over 30 updates ({secs:.1f} s)")
+        if not (last > 0.10 and last > 5 * max(first, 1e-4)):
+            raise AssertionError(f"{name} did not learn: {r}")
+    r, dk_env, dk_model, secs = learn("MiniGrid-DoorKey-5x5-v0", 120,
+                                      "regen", False, num_envs=256,
+                                      ent_coef=0.02)
+    first, last = sum(r[:10]) / 10, sum(r[-10:]) / 10
+    print(f"learning, DoorKey-5x5 regen B=256: mean reward first10 "
+          f"{first:.4f} -> last10 {last:.4f} over 120 updates ({secs:.1f} s)")
+    if not last > max(3 * first, 0.05):
+        raise AssertionError(f"DoorKey-5x5 did not learn: {r}")
+    rate = evaluate_success(dk_env, dk_model, 256, dk_env.generator(SEED + 7))
+    print(f"  greedy success rate of the DoorKey-5x5 policy: {rate:.4f} "
+          f"(256 fresh episodes)")
+
+    main_steps = sum(t["launches_per_step"] for t in train.values()) * 3
+    main_observes = sum(t["observe_launches_per_step"]
+                        for t in train.values()) * 3
     kernels = [{
         "name": "fused_step",
         "route": "cuda",
         "source": "minigrid_tpu_torch/csrc/fused_step.cu",
         "replaces": "minigrid_tpu/ops/fused_step.py:58",
-        "launches": launches,
+        "launches": main_steps,
+        "launches_per_train_step": {k: t["launches_per_step"]
+                                    for k, t in train.items()},
+        "launches_pooled_rollout": launches,
         "max_abs_err": max_err,
         "ms": ms1,
         "plain_ms": plain_ms1,
@@ -427,7 +779,25 @@ def main() -> int:
         "ms_t128_b65536": ms_big,
         "bound_ms_t128_b65536": bound_big,
         "group_lanes": groups,
+    }, {
+        "name": "fused_step_observe",
+        "route": "cuda",
+        "source": "minigrid_tpu_torch/csrc/fused_step.cu",
+        "replaces": "minigrid_tpu/ops/fused_step.py:144",
+        "launches": main_observes,
+        "launches_per_train_step": {k: t["observe_launches_per_step"]
+                                    for k, t in train.items()},
+        "max_abs_err": observe_err,
+        "ms": ms_o,
+        "plain_ms": plain_ms_o,
+        "bound_ms": bound_o,
+        "bound_by": by_o,
+        "library_ms": None,
     }]
+    print(json.dumps({"train_step": {k: {kk: vv for kk, vv in t.items()
+                                         if kk != "metrics"}
+                                     for k, t in train.items()},
+                      "update_max_abs_err": update_err}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

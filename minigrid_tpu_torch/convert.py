@@ -33,6 +33,36 @@ def actor_critic_from_flax(params_np) -> dict:
     return sd
 
 
+def actor_critic_to_flax(state_dict) -> dict:
+    """The inverse of :func:`actor_critic_from_flax`: an ``ActorCritic``
+    ``state_dict`` (or any mapping of the same names, e.g. Adam moments)
+    -> the Flax ``{"params": ...}`` tree with numpy leaves."""
+    def arr(name):
+        return state_dict[name].detach().cpu().numpy()
+
+    p = {name: {"kernel": arr(f"{name}.weight").T.copy(),
+                "bias": arr(f"{name}.bias")} for name in DENSE_LAYERS}
+    p["mission_embed"] = arr("mission_embed")
+    return {"params": p}
+
+
+def adam_state_from_optax(optimizer: torch.optim.Adam, model, mu, nu,
+                          count) -> torch.optim.Adam:
+    """Load optax Adam moments (``mu``, ``nu``: Flax ``ActorCritic`` trees
+    with numpy leaves; ``count``: the step count) into ``optimizer``, a
+    ``torch.optim.Adam`` over ``model.parameters()``, in place. Returns
+    the optimizer."""
+    mu_sd, nu_sd = actor_critic_from_flax(mu), actor_critic_from_flax(nu)
+    sd = optimizer.state_dict()
+    for i, (name, p) in enumerate(model.named_parameters()):
+        sd["state"][i] = {
+            "step": torch.tensor(float(np.asarray(count))),
+            "exp_avg": mu_sd[name].to(p.device),
+            "exp_avg_sq": nu_sd[name].to(p.device)}
+    optimizer.load_state_dict(sd)
+    return optimizer
+
+
 def _field(src, name):
     return src[name] if isinstance(src, Mapping) else getattr(src, name)
 

@@ -10,7 +10,12 @@
 // entry takes one broadcast reset row per step (packed grid + scalars): envs
 // that finish the step (terminated | truncated) take the row after the
 // transition and before the observation, the order of the JAX package's
-// envs/base.py::_apply_broadcast_reset. Any odd view size 3..31 (a view row
+// envs/base.py::_apply_broadcast_reset. A third entry, fused_observe, is the
+// observation half alone: it reads each env's state and writes its packed
+// view, with no transition and no state out. The auto-resets that put a
+// different state into each finished env (regenerated, per-env pool rows,
+// the fresh buffer's ranked rows) step with the first entry, select in
+// PyTorch, and observe with this one. Any odd view size 3..31 (a view row
 // is one 32-bit mask), compiled for V=7 and for V given at run time.
 //
 // Design: a group of G lanes per env (G = 1, 2, 4, 8, 16 or 32, a template
@@ -47,13 +52,15 @@
 // step's actions come G steps at a time, one per lane, a chunk ahead, and
 // are shuffled to the group.
 //
-// Bound: bytes. Per launch it reads the state (B * (W*H*5 + 21) bytes) and
-// writes it back with its two flags (B * (W*H*5 + 23)), reads T * B int32
+// Bound: bytes. Per step launch it reads the state (B * (W*H*5 + 21) bytes)
+// and writes it back with its two flags (B * (W*H*5 + 23)), reads T * B int32
 // actions and writes T * B * (4*V*V + 4 + 2) bytes of observations, rewards
 // and flags. The integer work is a few hundred operations per env-step
 // (2 V^2 window reads and tests, V rows x 2 ceil(log2 V) Kogge-Stone steps
 // of two operations, ~30 for the transition): at B=4096, T=128, DoorKey-8x8
-// about 6.6 us at the H100's INT32 rate against the 33.1 us byte bound.
+// about 6.6 us at the H100's INT32 rate against the 33.1 us byte bound. The
+// observe entry reads B * (W*H*5 + 17) bytes of state and writes B * 4*V*V
+// of observations: 2.2 MB, ~0.65 us, at B=4096 on DoorKey-8x8.
 
 // Float rule: the reward is 1 - 0.9 * (step_count / max_steps) rounded after
 // each operation (__fdiv_rn, __fmul_rn, __fsub_rn, and the build passes
@@ -75,6 +82,9 @@ constexpr int kNScal = 8;  // x, y, dir, carrying, step_count, term, trunc, pad
 constexpr int kMaxThreads = 256;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kBadLaunch = -1;
+// what a launch runs: T steps, T steps with a reset row each, or the
+// observation of the given state alone
+enum Mode { kStep, kStepReset, kObserve };
 
 struct Args {
   const uint8_t* grid_in;    // (B, W, H, 5)
@@ -82,7 +92,7 @@ struct Args {
   const int32_t* dir_in;     // (B,)
   const uint8_t* carry_in;   // (B, 5)
   const int32_t* step_in;    // (B,)
-  const int32_t* actions;    // (T, B)
+  const int32_t* actions;    // (T, B), null for kObserve
   const int32_t* reset_grid; // (T, W*H) packed cells, or null
   const int32_t* reset_scal; // (T, kNScal), or null
   int32_t* obs;              // (T, V*V, B) native or (T, B, V*V) public
@@ -172,9 +182,12 @@ __device__ __forceinline__ unsigned group_bits(bool p, int base) {
 }
 
 // VC: the view size when known at compile time (7, the default), else 0
-// and the view size is a.V.
-template <int G, int VC, bool RESET>
-__global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
+// and the view size is a.V. MODE kObserve runs one pass of the observation
+// on the state as given (a.T is 1): no transition, no state out.
+template <int G, int VC, int MODE>
+__device__ __forceinline__ void run(const Args& a) {
+  constexpr bool RESET = MODE == kStepReset;
+  constexpr bool OBSERVE = MODE == kObserve;
   extern __shared__ uint4 smem_raw[];
   int32_t* smem = reinterpret_cast<int32_t*>(smem_raw);
   const int V = VC > 0 ? VC : a.V;
@@ -210,7 +223,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
     y = a.pos_in[2 * b + 1];
     d = a.dir_in[b];
     carry = pack5(a.carry_in + 5 * b);
-    sc = a.step_in[b];
+    if constexpr (!OBSERVE) sc = a.step_in[b];
   }
   __syncwarp();
   for (int c = lg; c < NC; c += G) g[c] = with_clear(pack5(bytes + 5 * c));
@@ -222,96 +235,98 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
   const int T = a.T;
   auto load_actions = [&](int t0) {
     const int t = t0 + lg;
-    return active && t < T ? actions[(long long)t * B + b] : 0;
+    return !OBSERVE && active && t < T ? actions[(long long)t * B + b] : 0;
   };
   int acts = load_actions(0), next_acts = load_actions(G);
   // view cells (vx, j) of a row j that this lane reads: vx = lg + i*G
   constexpr int kIter = ((VC > 0 ? VC : 31) + G - 1) / G;
 
   for (int t = 0; t < T; ++t) {
-    const int tk = t & (G - 1);
-    if (t > 0 && tk == 0) {
-      acts = next_acts;
-      next_acts = load_actions(t + G);
-    }
-    const int act = G == 1 ? acts : __shfl_sync(kAll, acts, tk, G);
-    sc += 1;
-    // --- transition (core/step.py::step_core), on every lane ------------
-    const int turn = act == 0 ? -1 : (act == 1 ? 1 : 0);
-    const int nd = (d + turn + 4) & 3;
-    const int fx = (d == 0) - (d == 2), fy = (d == 1) - (d == 3);
-    const int fwx = x + fx, fwy = y + fy;
-    const bool inb = fwx >= 0 && fwx < W && fwy >= 0 && fwy < H;
-    const int fidx = fwx * H + fwy;
-    const int fval = inb ? g[fidx] : kWallPacked;  // before write
-    const int ftype = fval & 15, fcolor = (fval >> 4) & 7,
-              fstate = (fval >> 7) & 3;
-    const bool carrying = (carry & 15) != kEmpty;
-    const bool can_overlap = ftype == kEmpty || ftype == kFloor ||
-                             ftype == kGoal || ftype == kLava ||
-                             (ftype == kDoor && fstate == kOpen);
-    const bool fwd = act == 2;
-    const bool move = fwd && can_overlap && inb;
-    const bool hits_goal = fwd && ftype == kGoal;
-    const bool terminated = hits_goal || (fwd && ftype == kLava);
-    const float rew =
-        hits_goal ? __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn(
-                                                  (float)sc,
-                                                  (float)a.max_steps)))
-                  : 0.0f;
-    const bool do_pickup = act == 3 && !carrying &&
-                           (ftype == kKey || ftype == kBall || ftype == kBox);
-    const bool do_drop = act == 4 && ftype == kEmpty && carrying;
-    const bool is_toggle = act == 5;
-    const bool is_door = ftype == kDoor, is_box = ftype == kBox;
-    const bool has_key =
-        (carry & 15) == kKey && ((carry >> 4) & 7) == fcolor;
-    const int toggled = fstate == kLocked
-                            ? (has_key ? kOpen : kLocked)
-                            : (fstate == kOpen ? kClosed : kOpen);
-    const int door_cell = (fval & ~(3 << 7)) | (toggled << 7);
-    const int cont_type = (fval >> 9) & 15, cont_color = (fval >> 13) & 7;
-    const int contents =
-        cont_type != 0 ? (cont_type | (cont_color << 4)) : kEmpty;
-    int new_fwd = fval;
-    if (do_pickup) new_fwd = kEmpty;
-    if (do_drop) new_fwd = carry;
-    if (is_toggle && is_door) new_fwd = door_cell;
-    if (is_toggle && is_box) new_fwd = contents;
-    const bool writes =
-        inb && (do_pickup || do_drop || (is_toggle && (is_door || is_box)));
-    carry = do_pickup ? fval : (do_drop ? kEmpty : carry);
-    if (move) { x = fwx; y = fwy; }
-    d = nd;
-    te = terminated;
-    tr = sc >= a.max_steps;
-    const bool done = te || tr;
-    if (active && lg == 0) {
-      const long long o = (long long)t * B + b;
-      a.reward[o] = rew;
-      a.term[o] = te;
-      a.trunc[o] = tr;
-    }
-    __syncwarp();  // the group has read the front cell and the last window
-    // a reset row replaces the whole grid, the front cell included
-    if (writes && lg == 0 && !(RESET && done)) {
-      g[fidx] = with_clear(new_fwd);
-      unpack5(new_fwd, bytes + 5 * fidx);
-    }
-
-    // --- broadcast reset row into finished envs, before the obs --------
-    if (RESET && done) {
-      const int32_t* rg = a.reset_grid + (long long)t * NC;
-      for (int c = lg; c < NC; c += G) {
-        const int p = rg[c];
-        g[c] = with_clear(p);
-        unpack5(p, bytes + 5 * c);
+    if constexpr (!OBSERVE) {
+      const int tk = t & (G - 1);
+      if (t > 0 && tk == 0) {
+        acts = next_acts;
+        next_acts = load_actions(t + G);
       }
-      const int32_t* rs = a.reset_scal + (long long)t * kNScal;
-      x = rs[0]; y = rs[1]; d = rs[2]; carry = rs[3]; sc = rs[4];
-      te = rs[5]; tr = rs[6];
+      const int act = G == 1 ? acts : __shfl_sync(kAll, acts, tk, G);
+      sc += 1;
+      // --- transition (core/step.py::step_core), on every lane ----------
+      const int turn = act == 0 ? -1 : (act == 1 ? 1 : 0);
+      const int nd = (d + turn + 4) & 3;
+      const int fx = (d == 0) - (d == 2), fy = (d == 1) - (d == 3);
+      const int fwx = x + fx, fwy = y + fy;
+      const bool inb = fwx >= 0 && fwx < W && fwy >= 0 && fwy < H;
+      const int fidx = fwx * H + fwy;
+      const int fval = inb ? g[fidx] : kWallPacked;  // before write
+      const int ftype = fval & 15, fcolor = (fval >> 4) & 7,
+                fstate = (fval >> 7) & 3;
+      const bool carrying = (carry & 15) != kEmpty;
+      const bool can_overlap = ftype == kEmpty || ftype == kFloor ||
+                               ftype == kGoal || ftype == kLava ||
+                               (ftype == kDoor && fstate == kOpen);
+      const bool fwd = act == 2;
+      const bool move = fwd && can_overlap && inb;
+      const bool hits_goal = fwd && ftype == kGoal;
+      const bool terminated = hits_goal || (fwd && ftype == kLava);
+      const float rew =
+          hits_goal ? __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn(
+                                                    (float)sc,
+                                                    (float)a.max_steps)))
+                    : 0.0f;
+      const bool do_pickup = act == 3 && !carrying &&
+                             (ftype == kKey || ftype == kBall || ftype == kBox);
+      const bool do_drop = act == 4 && ftype == kEmpty && carrying;
+      const bool is_toggle = act == 5;
+      const bool is_door = ftype == kDoor, is_box = ftype == kBox;
+      const bool has_key =
+          (carry & 15) == kKey && ((carry >> 4) & 7) == fcolor;
+      const int toggled = fstate == kLocked
+                              ? (has_key ? kOpen : kLocked)
+                              : (fstate == kOpen ? kClosed : kOpen);
+      const int door_cell = (fval & ~(3 << 7)) | (toggled << 7);
+      const int cont_type = (fval >> 9) & 15, cont_color = (fval >> 13) & 7;
+      const int contents =
+          cont_type != 0 ? (cont_type | (cont_color << 4)) : kEmpty;
+      int new_fwd = fval;
+      if (do_pickup) new_fwd = kEmpty;
+      if (do_drop) new_fwd = carry;
+      if (is_toggle && is_door) new_fwd = door_cell;
+      if (is_toggle && is_box) new_fwd = contents;
+      const bool writes =
+          inb && (do_pickup || do_drop || (is_toggle && (is_door || is_box)));
+      carry = do_pickup ? fval : (do_drop ? kEmpty : carry);
+      if (move) { x = fwx; y = fwy; }
+      d = nd;
+      te = terminated;
+      tr = sc >= a.max_steps;
+      const bool done = te || tr;
+      if (active && lg == 0) {
+        const long long o = (long long)t * B + b;
+        a.reward[o] = rew;
+        a.term[o] = te;
+        a.trunc[o] = tr;
+      }
+      __syncwarp();  // the group has read the front cell and the last window
+      // a reset row replaces the whole grid, the front cell included
+      if (writes && lg == 0 && !(RESET && done)) {
+        g[fidx] = with_clear(new_fwd);
+        unpack5(new_fwd, bytes + 5 * fidx);
+      }
+
+      // --- broadcast reset row into finished envs, before the obs ------
+      if (RESET && done) {
+        const int32_t* rg = a.reset_grid + (long long)t * NC;
+        for (int c = lg; c < NC; c += G) {
+          const int p = rg[c];
+          g[c] = with_clear(p);
+          unpack5(p, bytes + 5 * c);
+        }
+        const int32_t* rs = a.reset_scal + (long long)t * kNScal;
+        x = rs[0]; y = rs[1]; d = rs[2]; carry = rs[3]; sc = rs[4];
+        te = rs[5]; tr = rs[6];
+      }
+      __syncwarp();
     }
-    __syncwarp();
 
     // --- observation on the new state (core/obs.py::gen_obs) -----------
     // view cell (vx, vy) is world (tlx + orx*vx - ofx*vy, tly + ory*vx -
@@ -396,6 +411,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
   }
 
   // --- state out: the grid bytes were kept current -----------------------
+  if constexpr (OBSERVE) return;
   __syncwarp();
   if (active) {
     copy_grid<G>(a.grid_out + b * RB, bytes, RB, a.vec16, lg);
@@ -412,9 +428,21 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
 }
 
 template <int G, int VC, bool RESET>
+__global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
+  run<G, VC, RESET ? kStepReset : kStep>(a);
+}
+
+template <int G, int VC>
+__global__ void __launch_bounds__(kMaxThreads) fused_observe_kernel(Args a) {
+  run<G, VC, kObserve>(a);
+}
+
+template <int G, int VC, int MODE>
 int launch(const Args& a, cudaStream_t stream) {
   const Layout L(a.W * a.H, a.V, a.envs);
-  auto kernel = fused_step_kernel<G, VC, RESET>;
+  void (*kernel)(Args);
+  if constexpr (MODE == kObserve) kernel = fused_observe_kernel<G, VC>;
+  else kernel = fused_step_kernel<G, VC, MODE == kStepReset>;
   if (L.bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
@@ -425,22 +453,28 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int G, bool RESET>
+template <int G, int MODE>
 int by_view(const Args& a, cudaStream_t s) {
-  return a.V == 7 ? launch<G, 7, RESET>(a, s) : launch<G, 0, RESET>(a, s);
+  return a.V == 7 ? launch<G, 7, MODE>(a, s) : launch<G, 0, MODE>(a, s);
 }
 
-template <bool RESET>
+template <int MODE>
 int dispatch(const Args& a, cudaStream_t s) {
   switch (a.G) {
-    case 1: return by_view<1, RESET>(a, s);
-    case 2: return by_view<2, RESET>(a, s);
-    case 4: return by_view<4, RESET>(a, s);
-    case 8: return by_view<8, RESET>(a, s);
-    case 16: return by_view<16, RESET>(a, s);
-    case 32: return by_view<32, RESET>(a, s);
+    case 1: return by_view<1, MODE>(a, s);
+    case 2: return by_view<2, MODE>(a, s);
+    case 4: return by_view<4, MODE>(a, s);
+    case 8: return by_view<8, MODE>(a, s);
+    case 16: return by_view<16, MODE>(a, s);
+    case 32: return by_view<32, MODE>(a, s);
     default: return kBadLaunch;
   }
+}
+
+bool bad_geometry(int view_size, int group_lanes, int envs_per_block) {
+  const int threads = envs_per_block * group_lanes;
+  return view_size < 3 || view_size > 31 || view_size % 2 == 0 ||
+         envs_per_block < 1 || threads % 32 != 0 || threads > kMaxThreads;
 }
 
 }  // namespace
@@ -462,10 +496,7 @@ int fused_step_launch(
     int B, int T, int W, int H, int view_size, int max_steps,
     int see_through, int native_layout, int group_lanes, int envs_per_block,
     void* stream) {
-  const int threads = envs_per_block * group_lanes;
-  if (view_size < 3 || view_size > 31 || view_size % 2 == 0 ||
-      envs_per_block < 1 || threads % 32 != 0 || threads > kMaxThreads)
-    return kBadLaunch;
+  if (bad_geometry(view_size, group_lanes, envs_per_block)) return kBadLaunch;
   Args a;
   a.grid_in = static_cast<const uint8_t*>(grid_in);
   a.pos_in = static_cast<const int32_t*>(pos_in);
@@ -495,8 +526,30 @@ int fused_step_launch(
                           reinterpret_cast<uintptr_t>(grid_out);
   a.vec16 = rb % 16 == 0 && align % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.reset_grid != nullptr ? dispatch<true>(a, s)
-                                 : dispatch<false>(a, s);
+  return a.reset_grid != nullptr ? dispatch<kStepReset>(a, s)
+                                 : dispatch<kStep>(a, s);
+}
+
+// The observation of each env's state as given: obs (B, V*V) int32 in the
+// public layout, the same words the step entry writes for a step. Same
+// return codes and geometry rules as fused_step_launch.
+int fused_observe_launch(const void* grid_in, const void* pos_in,
+                         const void* dir_in, const void* carry_in, void* obs,
+                         int B, int W, int H, int view_size, int see_through,
+                         int group_lanes, int envs_per_block, void* stream) {
+  if (bad_geometry(view_size, group_lanes, envs_per_block)) return kBadLaunch;
+  Args a = {};
+  a.grid_in = static_cast<const uint8_t*>(grid_in);
+  a.pos_in = static_cast<const int32_t*>(pos_in);
+  a.dir_in = static_cast<const int32_t*>(dir_in);
+  a.carry_in = static_cast<const uint8_t*>(carry_in);
+  a.obs = static_cast<int32_t*>(obs);
+  a.B = B; a.T = 1; a.W = W; a.H = H; a.V = view_size;
+  a.see_through = see_through; a.native_layout = 0;
+  a.G = group_lanes; a.envs = envs_per_block;
+  a.vec16 = W * H * 5 % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(grid_in) % 16 == 0;
+  return dispatch<kObserve>(a, static_cast<cudaStream_t>(stream));
 }
 
 const char* fused_step_error_string(int code) {

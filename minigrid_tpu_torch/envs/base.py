@@ -15,7 +15,11 @@ episode's ``rng`` from it exactly as the JAX package does.
 
 On the card, ``step`` and the pooled auto-reset run the fused CUDA kernel
 (``ops/fused_step.py``) for every env without step hooks; on the CPU they
-run its plain version.
+run its plain version. The resets that put a different state into each
+finished env (regenerated layouts, per-env pool rows, the fresh buffer) run
+in three stages: the fused step without a reset row, the select in PyTorch
+(:func:`select_reset_states`, which takes the candidate states as an
+argument), and the kernel's observe entry on the selected states.
 """
 
 from __future__ import annotations
@@ -27,11 +31,12 @@ import torch
 
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.mission import tokenize
-from minigrid_tpu_torch.core.obs import gen_obs, packed_to_image
+from minigrid_tpu_torch.core.obs import packed_to_image
 from minigrid_tpu_torch.core.step import step_core
 from minigrid_tpu_torch.core.types import (MISSION_LEN, EnvParams, EnvState,
                                            resolve_device)
-from minigrid_tpu_torch.ops.fused_step import (fused_rollout, pack_rows,
+from minigrid_tpu_torch.ops.fused_step import (fused_observe, fused_rollout,
+                                               pack_rows,
                                                require_core_dynamics,
                                                unpack_rows)
 
@@ -79,11 +84,7 @@ class LayoutPool:
 
     def entry(self, i: int) -> EnvState:
         """Pool entry ``i`` as a batch-of-one EnvState (rng zero)."""
-        row = self.rows(i)
-        core = unpack_rows(row.grid, row.scal, self.width, self.height)
-        return EnvState(**core, mission=row.mission,
-                        rng=torch.zeros((1, 2), dtype=torch.int32,
-                                        device=self.grid.device))
+        return states_from_pool(self.rows(i))
 
 
 def pool_from_states(states: EnvState) -> LayoutPool:
@@ -94,10 +95,24 @@ def pool_from_states(states: EnvState) -> LayoutPool:
                       width=states.grid.shape[1], height=states.grid.shape[2])
 
 
+def states_from_pool(rows: LayoutPool) -> EnvState:
+    """Pool rows as a batched EnvState (rng zero), one env per row."""
+    core = unpack_rows(rows.grid, rows.scal, rows.width, rows.height)
+    return EnvState(**core, mission=rows.mission,
+                    rng=torch.zeros((rows.size, 2), dtype=torch.int32,
+                                    device=rows.grid.device))
+
+
 def make_layout_pool(env, generator: torch.Generator,
                      pool_size: int = 1024) -> LayoutPool:
     """A fresh pool of ``pool_size`` independent reset layouts."""
     return pool_from_states(env._gen_grid(generator, pool_size))
+
+
+def refresh_layout_pool(env, generator: torch.Generator,
+                        pool: LayoutPool) -> LayoutPool:
+    """Regenerate every pool entry (between train steps)."""
+    return make_layout_pool(env, generator, pool.size)
 
 
 def presample_reset_states(generator: torch.Generator, pool: LayoutPool,
@@ -145,12 +160,156 @@ def autoreset_step_presampled(env, keys, states: EnvState, actions,
 
 
 def autoreset_step_pooled(env, keys, states: EnvState, actions,
-                          pool: LayoutPool, generator: torch.Generator):
-    """BATCHED auto-resetting step, broadcast-row mode: ONE pool row drawn
-    for this step, and every env finishing on it restarts from that row
-    (per-env marginals stay uniform over the pool)."""
-    return autoreset_step_presampled(env, keys, states, actions,
-                                     draw_pool_row(generator, pool))
+                          pool: LayoutPool, generator: torch.Generator,
+                          independent: bool = False):
+    """BATCHED auto-resetting step from a layout pool.
+
+    Default, broadcast-row mode: ONE pool row drawn for this step, and every
+    env finishing on it restarts from that row (per-env marginals stay
+    uniform over the pool). ``independent=True``: every env draws its own
+    pool row (:func:`draw_independent_rows`), so same-step finishers do not
+    share a layout; it steps, selects and observes in three stages."""
+    if not independent:
+        return autoreset_step_presampled(env, keys, states, actions,
+                                         draw_pool_row(generator, pool))
+    idx = draw_independent_rows(generator, pool, states.batch_size)
+    return autoreset_step_select(env, states, actions,
+                                 independent_candidates(keys, pool, idx))
+
+
+def draw_independent_rows(generator: torch.Generator, pool: LayoutPool,
+                          num_envs: int) -> torch.Tensor:
+    """One uniform pool row index per env, (B,) int64."""
+    return torch.randint(0, pool.size, (num_envs,), generator=generator,
+                         device=pool.grid.device)
+
+
+def independent_candidates(keys, pool: LayoutPool, idx) -> EnvState:
+    """The reset states of the independent pool draw: pool row ``idx[b]``
+    for env b, with the fresh rng ``keys ^ RESET_RNG_SALT``."""
+    salt = torch.as_tensor(RESET_RNG_SALT, device=keys.device)
+    return states_from_pool(pool.rows(idx)).replace(rng=keys ^ salt)
+
+
+def select_reset_states(done, states: EnvState,
+                        candidates: EnvState) -> EnvState:
+    """Every field of ``candidates`` (B reset states, one per env) selected
+    into the envs where ``done``."""
+    def pick(cur, new):
+        mask = done.reshape((-1,) + (1,) * (cur.ndim - 1))
+        return torch.where(mask, new, cur)
+
+    return states.replace(**{k: pick(v, getattr(candidates, k))
+                             for k, v in states.tensors().items()})
+
+
+def autoreset_step_select(env, states: EnvState, actions,
+                          candidates: EnvState):
+    """BATCHED auto-resetting step with one given reset state per env: the
+    fused step without a reset row, ``candidates`` selected into the
+    finished envs (:func:`select_reset_states`), then the observation of
+    the selected states (the kernel's observe entry on the card). Returns
+    (obs, state, reward, terminated, truncated, info)."""
+    require_core_dynamics(env)
+    st, reward, term, trunc = _fused_step(env, states, actions)
+    st = select_reset_states(term | trunc, st, candidates)
+    return env._observe(st), st, reward, term, trunc, {}
+
+
+def autoreset_step(env, keys, states: EnvState, actions,
+                   generator: torch.Generator):
+    """Generic auto-resetting step through ``env.step``/``env.reset``: a
+    finishing episode is replaced by a freshly generated layout, so every
+    reset is an independent draw (the distribution reference path). Both
+    the stepped and the reset observation are computed and selected;
+    :meth:`MiniGridEnv.step_autoreset` observes once instead."""
+    obs, st, reward, term, trunc, info = env.step(keys, states, actions)
+    done = term | trunc
+    obs_r, st_r = env.reset(generator, states.batch_size)
+    st = select_reset_states(done, st, st_r)
+    obs = {k: torch.where(done.reshape((-1,) + (1,) * (v.ndim - 1)),
+                          obs_r[k], v) for k, v in obs.items()}
+    return obs, st, reward, term, trunc, info
+
+
+# ---------------------------------------------------------------------------
+# Fresh-buffer exact-distribution auto-reset (minigrid_tpu/envs/base.py
+# :338-432): a rollout pre-generates N fresh layouts and consumes them
+# through a cursor; the r-th env finishing a step takes row cursor + r, so
+# every reset is an independent fresh layout used at most once.
+# ---------------------------------------------------------------------------
+
+def presample_fresh_reset_states(env, generator: torch.Generator,
+                                 n: int) -> EnvState:
+    """``n`` independent fresh layouts, stacked (size it above the chunk's
+    expected consumption; see ``models.ppo.fresh_sizes``)."""
+    return env._gen_grid(generator, n)
+
+
+def autoreset_step_fresh(env, keys, states: EnvState, actions,
+                         buffer: EnvState, cursor, window: int = 32):
+    """BATCHED auto-resetting step with exact reset distribution: envs
+    finishing this step are ranked (exclusive cumsum of the done mask), the
+    env of rank r restarts from buffer row ``cursor + r`` and the cursor
+    advances by the number of finishers. ``cursor`` is a device int32
+    scalar (no host sync). Ranks beyond ``window - 1`` share the last row of
+    the window, and the window start clamps at ``n_buf - window``;
+    ``info["reset_overflow"]`` counts the finishers whose reset was not an
+    untouched fresh row for either reason. Returns ``(obs, state, reward,
+    terminated, truncated, info, new_cursor)``."""
+    require_core_dynamics(env)
+    st, reward, term, trunc = _fused_step(env, states, actions)
+    obs, st, info, cursor = _fresh_select(env, keys, st, term | trunc,
+                                          buffer, cursor, window)
+    return obs, st, reward, term, trunc, info, cursor
+
+
+def fresh_candidates(keys, done, buffer: EnvState, cursor, window: int):
+    """The routing of the fresh reset: (candidates, reset_overflow,
+    new_cursor). Candidate b is buffer row ``start + min(rank_b, window -
+    1)`` with ``start = min(cursor, n_buf - window)``, gathered by device
+    indices, and the fresh rng ``keys ^ RESET_RNG_SALT``."""
+    n_buf = buffer.batch_size
+    if not 1 <= window <= n_buf:
+        raise ValueError(f"window must be in [1, {n_buf}], got {window}")
+    d = done.to(torch.int32)
+    rank = torch.cumsum(d, 0, dtype=torch.int32) - d
+    slot = torch.clamp(rank, max=window - 1)
+    start = torch.clamp(cursor, max=n_buf - window)
+    rows = (start + slot).to(torch.int64)
+    salt = torch.as_tensor(RESET_RNG_SALT, device=keys.device)
+    cand = buffer.map(lambda x: x[rows]).replace(rng=keys ^ salt)
+    overrun_rows = torch.clamp(cursor - (n_buf - window), min=0)
+    overflow = (done & ((rank >= window) | (slot < overrun_rows))).sum(
+        dtype=torch.int32)
+    return cand, overflow, cursor + d.sum(dtype=torch.int32)
+
+
+def _fresh_select(env, keys, st: EnvState, done, buffer: EnvState, cursor,
+                  window: int):
+    """The routing/select/observe tail of :func:`autoreset_step_fresh`.
+    Returns ``(obs, state, info, new_cursor)``."""
+    cand, overflow, cursor = fresh_candidates(keys, done, buffer, cursor,
+                                              window)
+    st = select_reset_states(done, st, cand)
+    return env._observe(st), st, {"reset_overflow": overflow}, cursor
+
+
+def require_bare_env(env, what: str):
+    """Raise unless ``env`` is a bare :class:`MiniGridEnv`: the batched
+    fast-path functions of this module run its step and observation
+    directly."""
+    if not isinstance(env, MiniGridEnv):
+        raise NotImplementedError(
+            f"{what} operates on bare envs (got {type(env).__name__})")
+
+
+def _fused_step(env, states: EnvState, actions):
+    """One fused step of every env, no reset row: (state, reward,
+    terminated, truncated); the step's observation is not kept."""
+    st, _, reward, term, trunc = fused_rollout(env.params, states,
+                                               _actions(actions)[None])
+    return st, reward[0], term[0], trunc[0]
 
 
 def _actions(actions) -> torch.Tensor:
@@ -216,9 +375,14 @@ class MiniGridEnv:
         return view | {"direction": state.agent_dir,
                        "mission": state.mission}
 
+    def _observe(self, state: EnvState) -> dict:
+        """The observation of ``state`` (the kernel's observe entry on the
+        card, ``gen_obs`` on the CPU)."""
+        return self._obs_dict(fused_observe(self.params, state), state)
+
     def reset(self, generator: torch.Generator, num_envs: int):
         state = self._gen_grid(generator, num_envs)
-        return gen_obs(self.params, state), state
+        return self._observe(state), state
 
     def reset_staggered(self, generator: torch.Generator, num_envs: int):
         """Reset with a uniform random initial ``step_count`` in
@@ -261,15 +425,35 @@ class MiniGridEnv:
             self.params, state, _actions(action)[None])
         return self._obs_dict(obs[0], st), st, reward[0], term[0], trunc[0], {}
 
+    def step_autoreset(self, keys, states: EnvState, actions,
+                       generator: torch.Generator):
+        """Step with the regen auto-reset: a fresh ``_gen_grid`` batch is
+        generated every step and selected into the finished envs, whose
+        observation is then taken once on the selected state. Reward and
+        flags report the finishing step."""
+        return autoreset_step_select(
+            self, states, actions,
+            self._gen_grid(generator, states.batch_size))
+
     def step_autoreset_presampled(self, keys, states: EnvState, actions,
                                   reset_row: LayoutPool):
         return autoreset_step_presampled(self, keys, states, actions,
                                          reset_row)
 
     def step_autoreset_pooled(self, keys, states: EnvState, actions,
-                              pool: LayoutPool, generator: torch.Generator):
+                              pool: LayoutPool, generator: torch.Generator,
+                              independent: bool = False):
         return autoreset_step_pooled(self, keys, states, actions, pool,
-                                     generator)
+                                     generator, independent)
+
+    def step_autoreset_fresh(self, keys, states: EnvState, actions,
+                             buffer: EnvState, cursor, window: int = 32):
+        return autoreset_step_fresh(self, keys, states, actions, buffer,
+                                    cursor, window)
+
+    def presample_fresh(self, generator: torch.Generator,
+                        n: int) -> EnvState:
+        return presample_fresh_reset_states(self, generator, n)
 
     def make_pool(self, generator: torch.Generator,
                   pool_size: int = 1024) -> LayoutPool:

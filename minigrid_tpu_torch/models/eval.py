@@ -1,0 +1,66 @@
+"""Policy evaluation: the measured episode success rate.
+
+Counterpart of ``minigrid_tpu/models/eval.py``. N fresh episodes run to
+completion under the greedy (argmax) policy, batched; an episode succeeds
+when it terminates with a positive reward (timeouts and lava deaths fail).
+Finished episodes freeze, so each is counted once.
+
+    from minigrid_tpu_torch.models.eval import evaluate_success
+    rate = evaluate_success(env, model, n_episodes=1024)
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def evaluate_success(env, model, n_episodes: int = 1024,
+                     generator: torch.Generator | None = None,
+                     max_steps: int | None = None,
+                     require_all_done: bool = True) -> float:
+    """Fraction of ``n_episodes`` fresh episodes (``env.reset`` from
+    ``generator``, seed 0 by default) that the greedy policy solves within
+    ``max_steps`` (the env's budget by default). With ``require_all_done``
+    it raises when an episode is still running at the end of the budget,
+    which would otherwise count as a failure."""
+    if generator is None:
+        generator = env.generator(0)
+    obs, state = env.reset(generator, n_episodes)
+    return evaluate_success_from(env, model, obs, state, max_steps,
+                                 require_all_done)
+
+
+@torch.no_grad()
+def evaluate_success_from(env, model, obs: dict, state,
+                          max_steps: int | None = None,
+                          require_all_done: bool = True) -> float:
+    """:func:`evaluate_success` on a given reset batch (``obs``, ``state``),
+    e.g. states exported from the JAX package."""
+    T = max_steps or int(env.params.max_steps)
+    B = state.batch_size
+    dev = state.device
+    keys = torch.zeros((B, 2), dtype=torch.int32, device=dev)  # unread
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    success = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    def frozen(x):
+        return done.reshape((-1,) + (1,) * (x.ndim - 1))
+
+    for _ in range(T):
+        logits, _ = model(obs)
+        action = torch.argmax(logits, dim=-1)
+        obs2, st2, r, te, tr, _ = env.step(keys, state, action)
+        success = success | (~done & te & (r > 0))
+        state = state.replace(**{
+            k: torch.where(frozen(v), v, getattr(st2, k))
+            for k, v in state.tensors().items()})
+        obs = {k: torch.where(frozen(v), v, obs2[k]) for k, v in obs.items()}
+        done = done | te | tr
+    done_rate = float(done.float().mean())
+    if require_all_done and done_rate < 1.0:
+        raise ValueError(
+            f"{(1 - done_rate) * 100:.1f}% of episodes still running after "
+            f"the {T}-step budget; raise max_steps (they would otherwise "
+            "count as failures; pass require_all_done=False to accept the "
+            "conservative bound)")
+    return float(success.float().mean())

@@ -1,14 +1,24 @@
-"""The PPO rollout over batched envs with pooled auto-reset.
+"""PPO over batched envs: the rollout in every reset mode and the update.
 
-Counterpart of the rollout in ``minigrid_tpu/models/ppo.py``
-(``make_train_step``'s ``rollout``, pooled mode, MLP policy): each step
-encodes the observation once (stored in the trajectory and fed to the
-policy), samples the action by Gumbel-argmax with presampled noise, and steps
-every env with this step's presampled broadcast reset row. The mission is
-carried as vocabulary counts, refreshed from the reset row in finished envs.
-On the card every env step is one launch of the fused CUDA kernel.
+Counterpart of ``minigrid_tpu/models/ppo.py`` (MLP policy). The rollout
+encodes each observation once (stored in the trajectory and fed to the
+policy), samples the action by Gumbel-argmax with presampled noise, and
+auto-resets finished envs in one of three modes:
 
-The update phase (GAE, loss, optimizer) is not ported yet.
+- ``"pooled"``: this step's presampled broadcast row from a layout pool; the
+  mission is carried as vocabulary counts, refreshed from the row;
+- ``"fresh"``: a buffer of fresh layouts generated per rollout, consumed
+  through a device-side cursor (``envs/base.py::autoreset_step_fresh``);
+- ``"regen"``: a fresh ``_gen_grid`` batch every step, selected where done.
+
+On the card every env step is one launch of the fused CUDA kernel, and the
+fresh and regen modes add one launch of its observe entry per step. The
+update is GAE, then ``num_epochs`` passes over ``num_minibatches``
+minibatches of the clipped-surrogate loss, each followed by optax's global
+clip-norm rule and Adam. ``make_train_step`` returns
+``train_step(env_state, obs, generator, pool=None) -> (env_state, obs,
+metrics)``, which updates the model and the optimizer in place; metrics stay
+device tensors until the caller reads them.
 """
 
 from __future__ import annotations
@@ -22,6 +32,32 @@ from minigrid_tpu_torch.envs.base import (LayoutPool, presample_reset_states,
                                           random_keys)
 from minigrid_tpu_torch.models.actor_critic import (encode_obs,
                                                     mission_counts)
+
+RESET_MODES = ("regen", "pooled", "fresh")
+SHUFFLES = ("rotate", "timestep", "sample")
+OBS_KEYS = ("img_feat", "mission_counts", "direction")
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    """The JAX package's PPO settings, with the same defaults."""
+
+    num_envs: int = 4096
+    rollout_len: int = 128
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    vf_coef: float = 0.5
+    ent_coef: float = 0.01
+    lr: float = 2.5e-4
+    max_grad_norm: float = 0.5
+    num_epochs: int = 1
+    num_minibatches: int = 4
+    # "rotate": minibatch i is the contiguous timestep slab ((i + off) % n),
+    # with a random offset per epoch (no copy); "timestep": a random
+    # permutation of whole timesteps, then contiguous slabs; "sample": a
+    # random permutation of all T*B samples
+    shuffle: str = "rotate"
 
 
 class Transition(NamedTuple):
@@ -45,49 +81,313 @@ class RolloutNoise:
 
     step_keys: torch.Tensor   # (T, B, 2) int32 env step keys
     gumbel: torch.Tensor      # (T, B, A) float32 action noise
-    reset_rows: LayoutPool    # T broadcast reset rows
+    reset_rows: LayoutPool | None = None  # T broadcast reset rows (pooled)
 
 
-def sample_rollout_noise(generator: torch.Generator, pool: LayoutPool,
-                         num_envs: int, length: int,
-                         num_actions: int) -> RolloutNoise:
-    """Draw a rollout's keys, Gumbel noise and reset rows up front."""
-    dev = pool.grid.device
+def sample_rollout_noise(generator: torch.Generator, pool: LayoutPool | None,
+                         num_envs: int, length: int, num_actions: int,
+                         device=None) -> RolloutNoise:
+    """Draw a rollout's keys, Gumbel noise and (with a pool) reset rows up
+    front. Without a pool, ``device`` says where."""
+    dev = pool.grid.device if pool is not None else torch.device(device)
     keys = random_keys(generator, (length, num_envs, 2), dev)
     u = torch.rand((length, num_envs, num_actions), generator=generator,
                    device=dev)
     u = u.clamp(min=torch.finfo(torch.float32).tiny)
     gumbel = -torch.log(-torch.log(u))
-    return RolloutNoise(keys, gumbel,
-                        presample_reset_states(generator, pool, length))
+    rows = (presample_reset_states(generator, pool, length)
+            if pool is not None else None)
+    return RolloutNoise(keys, gumbel, rows)
+
+
+def fresh_sizes(env, cfg: PPOConfig,
+                fresh_buffer: int | None = None) -> tuple[int, int]:
+    """(buffer rows, routing window) of the fresh reset, as the JAX package
+    sizes them: the buffer ~1.2x the expected resets of a rollout plus 8
+    sigma, the window ~2x a step's mean finishers plus 6 sigma (at least
+    32, at most the buffer)."""
+    if fresh_buffer is None:
+        ms = int(env.params.max_steps)
+        if ms > 1 << 16:
+            raise ValueError(
+                "resets='fresh' on a dynamic-budget env (max_steps "
+                f"sentinel {ms}): pass fresh_buffer explicitly")
+        mean = cfg.num_envs * cfg.rollout_len / ms
+        fresh_buffer = int(mean * 1.2) + 8 * int(mean ** 0.5) + 64
+    mean_step = fresh_buffer / max(cfg.rollout_len, 1)
+    window = max(32, int(2 * mean_step + 6 * mean_step ** 0.5) + 1)
+    return fresh_buffer, min(window, fresh_buffer)
 
 
 @torch.no_grad()
-def rollout(model, env, env_state, obs: dict, noise: RolloutNoise):
+def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
+            resets: str = "pooled", generator: torch.Generator | None = None,
+            fresh_buffer: int | None = None, fresh_window: int = 32):
     """T = noise.gumbel.shape[0] policy steps of every env.
 
-    Returns ``(env_state, obs, traj)`` where ``traj`` is a
-    :class:`Transition` of (T, B, ...) tensors; ``traj.obs`` holds the
-    encoded observations the policy saw."""
+    ``resets``: "pooled" takes ``noise.reset_rows``; "fresh" generates a
+    buffer of ``fresh_buffer`` layouts from ``generator`` and routes them
+    through a ``fresh_window``-row window; "regen" generates a batch from
+    ``generator`` every step. Returns ``(env_state, obs, traj,
+    reset_overflow)``: ``traj`` is a :class:`Transition` of (T, B, ...)
+    tensors, ``traj.obs`` the encoded observations the policy saw, and
+    ``reset_overflow`` the fresh mode's degraded resets summed over the
+    rollout (a device int32 scalar, 0 in the other modes)."""
+    if resets not in RESET_MODES:
+        raise ValueError(f"resets must be one of {RESET_MODES}, got "
+                         f"{resets!r}")
     T = noise.gumbel.shape[0]
+    dev = noise.gumbel.device
     view_key = "packed" if "packed" in obs else "image"
-    counts = mission_counts(obs["mission"])
-    reset_counts = mission_counts(noise.reset_rows.mission)       # (T, VOCAB)
+    # a mission changes only at a reset, so the pooled mode carries its
+    # counts and refreshes them from the reset row; the other modes count
+    # the tokens of each step's observation
+    carry = resets == "pooled"
+    if carry:
+        counts = mission_counts(obs["mission"])
+        reset_counts = mission_counts(noise.reset_rows.mission)   # (T, VOCAB)
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if resets == "fresh":
+        buffer = env.presample_fresh(generator, fresh_buffer)
+        cursor = torch.zeros((), dtype=torch.int32, device=dev)
     steps = []
     for t in range(T):
-        enc = encode_obs({view_key: obs[view_key], "mission_counts": counts,
-                          "direction": obs["direction"]})
+        if carry:
+            enc = encode_obs({view_key: obs[view_key],
+                              "mission_counts": counts,
+                              "direction": obs["direction"]})
+        else:
+            enc = encode_obs(obs)
         logits, value = model(enc)
         action = torch.argmax(logits + noise.gumbel[t], dim=-1)
         log_prob = _selected_log_prob(torch.log_softmax(logits, -1), action)
-        obs, env_state, reward, term, trunc, _ = \
-            env.step_autoreset_presampled(noise.step_keys[t], env_state,
-                                          action, noise.reset_rows.rows(t))
+        keys = noise.step_keys[t]
+        if resets == "pooled":
+            obs, env_state, reward, term, trunc, _ = \
+                env.step_autoreset_presampled(keys, env_state, action,
+                                              noise.reset_rows.rows(t))
+        elif resets == "fresh":
+            obs, env_state, reward, term, trunc, info, cursor = \
+                env.step_autoreset_fresh(keys, env_state, action, buffer,
+                                         cursor, fresh_window)
+            overflow = overflow + info["reset_overflow"]
+        else:
+            obs, env_state, reward, term, trunc, _ = env.step_autoreset(
+                keys, env_state, action, generator)
         done = term | trunc
-        counts = torch.where(done[:, None], reset_counts[t][None], counts)
+        if carry:
+            counts = torch.where(done[:, None], reset_counts[t][None],
+                                 counts)
         steps.append(Transition(enc, action.to(torch.int32), log_prob, value,
                                 reward, done))
     traj = Transition(
         {k: torch.stack([s.obs[k] for s in steps]) for k in steps[0].obs},
         *(torch.stack(f) for f in list(zip(*steps))[1:]))
-    return env_state, obs, traj
+    return env_state, obs, traj, overflow
+
+
+def gae(reward, value, done, last_value, gamma: float, gae_lambda: float):
+    """Generalized advantage estimation over (T, B) tensors, backwards in
+    time from ``last_value`` (B,). Returns (advantages, returns)."""
+    adv = torch.empty_like(value)
+    adv_next = torch.zeros_like(last_value)
+    v_next = last_value
+    for t in range(value.shape[0] - 1, -1, -1):
+        nonterm = 1.0 - done[t].to(torch.float32)
+        delta = reward[t] + gamma * v_next * nonterm - value[t]
+        adv_next = delta + gamma * gae_lambda * nonterm * adv_next
+        adv[t] = adv_next
+        v_next = value[t]
+    return adv, adv + value
+
+
+def ppo_loss(model, cfg: PPOConfig, mb: dict):
+    """The clipped-surrogate loss of one minibatch (a dict of the stored
+    encoding, action, log_prob, adv and ret over any leading shape); the
+    advantage is normalised over the minibatch. Returns (total, metrics)
+    with detached metrics."""
+    logits, value = model({k: mb[k] for k in OBS_KEYS})
+    log_probs = torch.log_softmax(logits, -1)
+    lp = _selected_log_prob(log_probs, mb["action"])
+    ratio = torch.exp(lp - mb["log_prob"])
+    adv = mb["adv"]
+    norm_adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    pg1 = ratio * norm_adv
+    pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * norm_adv
+    pg_loss = -torch.minimum(pg1, pg2).mean()
+    v_loss = 0.5 * torch.square(value - mb["ret"]).mean()
+    entropy = -(torch.exp(log_probs) * log_probs).sum(-1).mean()
+    total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
+    metrics = {"loss": total, "pg_loss": pg_loss, "v_loss": v_loss,
+               "entropy": entropy}
+    return total, {k: v.detach() for k, v in metrics.items()}
+
+
+def make_optimizer(model, cfg: PPOConfig) -> torch.optim.Adam:
+    """Adam over the model's parameters with optax's defaults (b1 0.9, b2
+    0.999, eps 1e-8). The global clip-norm that optax chains before it is
+    :func:`clip_by_global_norm_`, applied by :func:`update_minibatch`."""
+    return torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``, in place on the gradients: kept
+    while the global norm is below ``max_norm``, else ``g / norm *
+    max_norm``. Returns the norm (a device scalar; no host sync)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+def update_minibatch(model, optimizer, cfg: PPOConfig, mb: dict) -> dict:
+    """One gradient step on one minibatch: the loss, its gradient, the
+    global clip-norm and the optimizer step. Returns the loss metrics."""
+    optimizer.zero_grad(set_to_none=True)
+    total, metrics = ppo_loss(model, cfg, mb)
+    total.backward()
+    clip_by_global_norm_(list(model.parameters()), cfg.max_grad_norm)
+    optimizer.step()
+    return metrics
+
+
+def epoch_minibatches(data: dict, cfg: PPOConfig,
+                      generator: torch.Generator, offset: int | None = None):
+    """The minibatches of one epoch over ``data`` ((T, B, ...) tensors), in
+    visiting order. "rotate" yields (T/n, B, ...) views of the timestep
+    slabs starting at slab ``offset`` (drawn from ``generator`` when None:
+    the one host sync of an epoch); "timestep" and "sample" yield
+    flattened (T*B/n, ...) gathers."""
+    T, B = data["adv"].shape
+    n = cfg.num_minibatches
+    dev = data["adv"].device
+    if cfg.shuffle == "rotate":
+        mbt = T // n
+        if offset is None:
+            offset = int(torch.randint(0, n, (1,), generator=generator,
+                                       device=dev))
+        for i in range(n):
+            j = (i + offset) % n
+            yield {k: v[j * mbt:(j + 1) * mbt] for k, v in data.items()}
+    elif cfg.shuffle == "timestep":
+        mbt = T // n
+        tperm = torch.randperm(T, generator=generator, device=dev)
+        shuf = {k: v[tperm] for k, v in data.items()}
+        for i in range(n):
+            yield {k: v[i * mbt:(i + 1) * mbt].reshape(mbt * B, *v.shape[2:])
+                   for k, v in shuf.items()}
+    else:
+        flat = {k: v.reshape(T * B, *v.shape[2:]) for k, v in data.items()}
+        perm = torch.randperm(T * B, generator=generator, device=dev)
+        mb = T * B // n
+        for i in range(n):
+            idx = perm[i * mb:(i + 1) * mb]
+            yield {k: v[idx] for k, v in flat.items()}
+
+
+def ppo_update(model, optimizer, cfg: PPOConfig, traj: Transition,
+               last_obs: dict, generator: torch.Generator) -> dict:
+    """The update phase of a train step: GAE bootstrapped from the value of
+    ``last_obs``, then ``cfg.num_epochs`` passes over the minibatches of
+    ``traj``, updating ``model`` and ``optimizer`` in place. Returns the
+    loss metrics averaged over the minibatches and ``mean_reward``, as
+    device scalars."""
+    with torch.no_grad():
+        _, last_value = model(last_obs)
+    adv, ret = gae(traj.reward, traj.value, traj.done, last_value,
+                   cfg.gamma, cfg.gae_lambda)
+    data = dict(traj.obs, action=traj.action, log_prob=traj.log_prob,
+                adv=adv, ret=ret)
+    per_mb = [update_minibatch(model, optimizer, cfg, mb)
+              for _ in range(cfg.num_epochs)
+              for mb in epoch_minibatches(data, cfg, generator)]
+    metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
+               for k in per_mb[0]}
+    metrics["mean_reward"] = traj.reward.mean()
+    return metrics
+
+
+def check_config(cfg: PPOConfig) -> None:
+    """Raise ``ValueError`` for a shuffle the rollout shape cannot cut."""
+    if cfg.shuffle not in SHUFFLES:
+        raise ValueError(f"shuffle must be one of {SHUFFLES}, got "
+                         f"{cfg.shuffle!r}")
+    if cfg.shuffle in ("rotate", "timestep"):
+        if cfg.rollout_len % cfg.num_minibatches:
+            raise ValueError(
+                f"{cfg.shuffle} shuffling needs rollout_len "
+                f"({cfg.rollout_len}) divisible by num_minibatches "
+                f"({cfg.num_minibatches})")
+    elif (cfg.num_envs * cfg.rollout_len) % cfg.num_minibatches:
+        raise ValueError(
+            f"sample shuffling needs num_envs*rollout_len "
+            f"({cfg.num_envs * cfg.rollout_len}) divisible by "
+            f"num_minibatches ({cfg.num_minibatches})")
+
+
+def make_train_step(env, model, cfg: PPOConfig, optimizer,
+                    pooled: bool = False, resets: str | None = None,
+                    fresh_buffer: int | None = None):
+    """Returns ``train_step(env_state, obs, generator, pool=None) ->
+    (env_state, obs, metrics)``: one rollout of ``cfg.rollout_len`` steps in
+    the ``resets`` mode ("regen" by default; ``pooled=True`` is shorthand
+    for "pooled", which needs ``pool``), GAE, and the update of ``model``
+    and ``optimizer`` in place. ``metrics`` holds device scalars: the loss
+    terms averaged over the minibatches, ``mean_reward`` and, with fresh
+    resets, ``reset_overflow`` summed over the rollout. ``fresh_buffer``
+    overrides the fresh buffer's size (:func:`fresh_sizes`)."""
+    if getattr(model, "is_recurrent", False):
+        raise NotImplementedError(
+            "recurrent policies are not ported yet (ROADMAP Queue 1 item 14)")
+    if resets is None:
+        resets = "pooled" if pooled else "regen"
+    if resets not in RESET_MODES:
+        raise ValueError(f"resets must be one of {RESET_MODES}, got "
+                         f"{resets!r}")
+    check_config(cfg)
+    n_buf, window = (fresh_sizes(env, cfg, fresh_buffer)
+                     if resets == "fresh" else (None, 32))
+
+    def train_step(env_state, obs, generator: torch.Generator,
+                   pool: LayoutPool | None = None):
+        if env_state.batch_size != cfg.num_envs:
+            raise ValueError(f"env_state holds {env_state.batch_size} envs, "
+                             f"cfg.num_envs is {cfg.num_envs}")
+        if resets == "pooled" and pool is None:
+            raise ValueError("resets='pooled' needs a LayoutPool")
+        noise = sample_rollout_noise(
+            generator, pool if resets == "pooled" else None, cfg.num_envs,
+            cfg.rollout_len, model.num_actions, device=env_state.device)
+        env_state, obs, traj, overflow = rollout(
+            model, env, env_state, obs, noise, resets, generator, n_buf,
+            window)
+        metrics = ppo_update(model, optimizer, cfg, traj, obs, generator)
+        if resets == "fresh":
+            metrics["reset_overflow"] = overflow
+        return env_state, obs, metrics
+
+    return train_step
+
+
+def make_train_loop(env, model, cfg: PPOConfig, optimizer,
+                    steps_per_call: int = 8, **kw):
+    """``steps_per_call`` train steps per call: ``train_loop(env_state,
+    obs, generator, pool=None) -> (env_state, obs, metrics)`` with each
+    metric stacked (K,). With pooled resets the same pool serves all K
+    steps. Keyword arguments go to :func:`make_train_step`."""
+    step = make_train_step(env, model, cfg, optimizer, **kw)
+
+    def train_loop(env_state, obs, generator: torch.Generator,
+                   pool: LayoutPool | None = None):
+        per_step = []
+        for _ in range(steps_per_call):
+            env_state, obs, m = step(env_state, obs, generator, pool)
+            per_step.append(m)
+        return env_state, obs, {k: torch.stack([m[k] for m in per_step])
+                                for k in per_step[0]}
+
+    return train_loop

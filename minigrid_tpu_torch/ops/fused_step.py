@@ -7,7 +7,10 @@ packed grid in shared memory, scalars in registers across the T steps; the
 launch geometry is :func:`launch_geometry`). On the card
 this is the production step of every env without step hooks
 (:func:`require_core_dynamics`): ``MiniGridEnv.step`` and the pooled
-auto-reset go through it.
+auto-reset go through it. Its observe-only entry, :func:`fused_observe`,
+observes states as given: the resets that select a different state into
+each finished env (regenerated, per-env pool rows, the fresh buffer) step
+without a reset row, select in PyTorch, then observe through it.
 
 Routing is by the device of the tensors: CPU tensors take
 :func:`fused_rollout_reference` (the port's ``step_core`` + ``gen_obs``),
@@ -158,12 +161,13 @@ def fused_rollout_reference(params: EnvParams, states: EnvState,
 # --------------------------------------------------------------------------
 
 class FusedStepKernel:
-    """The compiled library, built and loaded at first use, and the count
-    of kernel launches (``launches``, a plain int that only the launch
-    adds to)."""
+    """The compiled library, built and loaded at first use, and the counts
+    of its launches: ``launches`` of the step entry, ``observe_launches`` of
+    the observe entry (plain ints that only the launches add to)."""
 
     def __init__(self):
         self.launches = 0
+        self.observe_launches = 0
         self.build_log = ""
         self._lib = None
 
@@ -175,6 +179,10 @@ class FusedStepKernel:
                 [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
                 + [ctypes.c_void_p])
             lib.fused_step_launch.restype = ctypes.c_int
+            lib.fused_observe_launch.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                + [ctypes.c_void_p])
+            lib.fused_observe_launch.restype = ctypes.c_int
             lib.fused_step_error_string.argtypes = [ctypes.c_int]
             lib.fused_step_error_string.restype = ctypes.c_char_p
             self._lib = lib
@@ -298,6 +306,13 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_state(states: EnvState, B: int, W: int, H: int):
+    _check(states.grid, "grid", torch.uint8, (B, W, H, 5))
+    _check(states.agent_pos, "agent_pos", torch.int32, (B, 2))
+    _check(states.agent_dir, "agent_dir", torch.int32, (B,))
+    _check(states.carrying, "carrying", torch.uint8, (B, 5))
+
+
 def _fused_rollout_cuda(params, states, actions, native_layout, reset_grid,
                         reset_scal, group_lanes: int | None = None):
     W, H, V = params.width, params.height, params.view_size
@@ -308,10 +323,7 @@ def _fused_rollout_cuda(params, states, actions, native_layout, reset_grid,
         raise ValueError(f"empty launch: T={T}, B={B}")
     _check(actions, "actions", torch.int32, (T, B))
     geo = launch_geometry(B, W, H, V, sm_count(actions.device), group_lanes)
-    _check(states.grid, "grid", torch.uint8, (B, W, H, 5))
-    _check(states.agent_pos, "agent_pos", torch.int32, (B, 2))
-    _check(states.agent_dir, "agent_dir", torch.int32, (B,))
-    _check(states.carrying, "carrying", torch.uint8, (B, 5))
+    _check_state(states, B, W, H)
     _check(states.step_count, "step_count", torch.int32, (B,))
     if reset_grid is not None:
         _check(reset_grid, "reset_grid", torch.int32, (T, NC))
@@ -349,6 +361,50 @@ def _fused_rollout_cuda(params, states, actions, native_layout, reset_grid,
         raise RuntimeError(f"fused_step kernel launch failed: {msg}")
     KERNEL.launches += 1
     return out, obs, reward, term, trunc
+
+
+def fused_observe_reference(params: EnvParams, states: EnvState):
+    """The observe entry's function in plain PyTorch: ``gen_obs`` in
+    packed mode. Returns (B, V, V) int32."""
+    packed = dataclasses.replace(params, packed_obs=True)
+    return gen_obs(packed, states)["packed"]
+
+
+def _fused_observe_cuda(params, states, group_lanes: int | None = None):
+    W, H, V = params.width, params.height, params.view_size
+    B = states.batch_size
+    check_view_size(V)
+    if B < 1:
+        raise ValueError(f"empty launch: B={B}")
+    _check_state(states, B, W, H)
+    dev = states.grid.device
+    geo = launch_geometry(B, W, H, V, sm_count(dev), group_lanes)
+    obs = torch.empty((B, V, V), dtype=torch.int32, device=dev)
+    lib = KERNEL.library()
+    code = lib.fused_observe_launch(
+        states.grid.data_ptr(), states.agent_pos.data_ptr(),
+        states.agent_dir.data_ptr(), states.carrying.data_ptr(),
+        obs.data_ptr(), B, W, H, V, int(params.see_through_walls),
+        geo.group_lanes, geo.envs_per_block,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        msg = lib.fused_step_error_string(code).decode()
+        raise RuntimeError(f"fused_observe kernel launch failed: {msg}")
+    KERNEL.observe_launches += 1
+    return obs
+
+
+def fused_observe(params: EnvParams, states: EnvState) -> torch.Tensor:
+    """The 9-bit packed view (B, V, V) int32, indexed [vx, vy], of each
+    env's state as given: the observation half of the fused step, with no
+    transition. CPU tensors run :func:`fused_observe_reference`, CUDA
+    tensors the kernel's observe entry."""
+    dev = states.grid.device.type
+    if dev == "cpu":
+        return fused_observe_reference(params, states)
+    if dev != "cuda":
+        raise ValueError(f"fused_observe runs on cpu or cuda, got {dev}")
+    return _fused_observe_cuda(params, states)
 
 
 def fused_rollout(params: EnvParams, states: EnvState, actions: torch.Tensor,

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's time goes on one GPU: the main-path rollout under
-``torch.profiler``, the fused step kernel at the main path's batch and at a
-batch that fills the card, and a sweep of the kernel's group width G.
+``torch.profiler``, the PPO train step in each reset mode, the fused step
+kernel at the main path's batch and at a batch that fills the card, and a
+sweep of the kernel's group width G.
 
-    python3 port_probes/rollout_profile.py [--steps 16]
+    python3 port_probes/rollout_profile.py [--steps 16] [--train-only]
 
 Prints the card, the host time per rollout step, the device busy share
 (union of kernel intervals over the profiled wall time), the top device
@@ -12,7 +13,10 @@ T=1 and T=128, with the public and the kernel-native observation layout,
 and pure stepping throughput at B=4096 and B=65536 (device time, one T=128
 launch). Then the sweep: the kernel's device time per launch (profiler) at
 every group width G, at B=4096, 16384 and 65536, T=1 with a reset row and
-T=128, beside the G that ``launch_geometry`` picks. Needs a CUDA device.
+T=128, beside the G that ``launch_geometry`` picks. ``--train-only``
+profiles only the train step: one step of DoorKey-8x8 at B=4096, T=128,
+bf16 hidden=256, ``PPOConfig()`` per reset mode, with its host time, device
+kernels, device busy share and top kernels. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,14 +54,14 @@ def profile_rollout(env, g, pool, B: int, T: int, card: str) -> None:
 
     obs, st = env.reset_staggered(g, B)
     model = init_params(ActorCritic(device="cuda"), g)
-    st, obs, _ = rollout(model, env, st, obs,
-                         sample_rollout_noise(g, pool, B, 8, 7))
+    st, obs, _, _ = rollout(model, env, st, obs,
+                            sample_rollout_noise(g, pool, B, 8, 7))
     noise = sample_rollout_noise(g, pool, B, T, 7)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st, obs, _ = rollout(model, env, st, obs, noise)
+        st, obs, _, _ = rollout(model, env, st, obs, noise)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events()
@@ -109,6 +113,51 @@ def profile_rollout(env, g, pool, B: int, T: int, card: str) -> None:
               f"{batch * 128 / ms * 1e3:.3e} env-steps/s ({card})")
 
 
+def profile_train_steps(card: str) -> None:
+    """One full-width train step per reset mode under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch.models.actor_critic import ActorCritic, init_params
+    from minigrid_tpu_torch.models.ppo import (PPOConfig, make_optimizer,
+                                               make_train_step)
+
+    cfg = PPOConfig()
+    for mode in ("pooled", "fresh", "regen"):
+        env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
+        g = env.generator(0)
+        model = init_params(ActorCritic(device="cuda"), g)
+        opt = make_optimizer(model, cfg)
+        pool = env.make_pool(g, 1024) if mode == "pooled" else None
+        obs, st = env.reset_staggered(g, cfg.num_envs)
+        step = make_train_step(env, model, cfg, opt, resets=mode)
+        st, obs, _ = step(st, obs, g, pool)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st, obs, _ = step(st, obs, g, pool)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in dev)
+        print(f"train step, {mode} resets, B={cfg.num_envs} "
+              f"T={cfg.rollout_len} under the profiler: {wall * 1e3:.1f} ms "
+              f"host, {len(dev)} device kernels, device busy "
+              f"{busy_share(dev, wall * 1e6):.3f} of wall "
+              f"({busy_us / 1e3:.2f} ms of kernels; {card})")
+        totals = {}
+        for e in dev:
+            n, us = totals.get(e.name, (0, 0.0))
+            totals[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        top = sorted(totals.items(), key=lambda kv: -kv[1][1])[:8]
+        for name, (n, us) in top:
+            print(f"  {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
+        del model, opt, step, st, obs
+
+
 def sweep_group_lanes(env, g, pool, card: str) -> None:
     """Device time per launch at every G, three batches, T=1 and T=128."""
     import torch
@@ -143,6 +192,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--train-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -154,6 +204,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
+    profile_train_steps(card)
+    if args.train_only:
+        return 0
     env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
     g = env.generator(0)
     pool = env.make_pool(g, 1024)

@@ -24,7 +24,8 @@ from minigrid_tpu_torch.core.mission import tokenize
 from minigrid_tpu_torch.envs.base import presample_reset_states
 from minigrid_tpu_torch.models.actor_critic import ActorCritic
 
-from tests.torch_port_utils import CPU, assert_state_equal
+from tests.torch_port_utils import (CPU, assert_state_equal,
+                                    doorkey_features)
 
 PORT_IDS = [
     "MiniGrid-DoorKey-5x5-v0", "MiniGrid-DoorKey-6x6-v0",
@@ -85,24 +86,6 @@ def test_empty_random_start_is_a_free_cell():
     assert set(st.agent_dir.tolist()) == {0, 1, 2, 3}
 
 
-def _doorkey_features(grid, agent_pos, agent_dir):
-    """Per layout: split column, door row, key cell, agent cell and dir."""
-    grid = np.asarray(grid)
-    B, W, H, _ = grid.shape
-    door = np.argwhere(grid[..., 0] == C.DOOR)
-    key = np.argwhere(grid[..., 0] == C.KEY)
-    assert len(door) == B and len(key) == B  # exactly one of each
-    assert (door[:, 0] == np.arange(B)).all()
-    pos = np.asarray(agent_pos)
-    return {
-        "split": door[:, 1],
-        "door_row": door[:, 2],
-        "key": key[:, 1] * H + key[:, 2],
-        "agent": pos[:, 0] * H + pos[:, 1],
-        "agent_dir": np.asarray(agent_dir),
-    }
-
-
 @pytest.mark.parametrize("size", [5, 8, 16])
 def test_doorkey_layout_invariants(size):
     env = minigrid_tpu_torch.make(f"MiniGrid-DoorKey-{size}x{size}-v0",
@@ -115,7 +98,7 @@ def test_doorkey_layout_invariants(size):
         assert (border == wall).all()
     goal = np.array([C.GOAL, C.COLOR_TO_IDX["green"], 0, 0, 0])
     assert (g[:, size - 2, size - 2] == goal).all()
-    f = _doorkey_features(g, st.agent_pos, st.agent_dir)
+    f = doorkey_features(g, st.agent_pos, st.agent_dir)
     assert ((f["split"] >= 2) & (f["split"] <= size - 3)).all()
     assert ((f["door_row"] >= 1) & (f["door_row"] <= size - 3)).all()
     yellow = C.COLOR_TO_IDX["yellow"]
@@ -145,8 +128,8 @@ def test_doorkey_distribution_matches_jax():
         jax.random.split(jax.random.PRNGKey(11), n))
     penv = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0", device=CPU)
     pst = penv._gen_grid(penv.generator(11), n)
-    jf = _doorkey_features(jst.grid, jst.agent_pos, jst.agent_dir)
-    pf = _doorkey_features(pst.grid.numpy(), pst.agent_pos, pst.agent_dir)
+    jf = doorkey_features(jst.grid, jst.agent_pos, jst.agent_dir)
+    pf = doorkey_features(pst.grid.numpy(), pst.agent_pos, pst.agent_dir)
     for k in jf:
         cats = np.union1d(jf[k], pf[k])
         table = np.stack([(jf[k][:, None] == cats).sum(0),

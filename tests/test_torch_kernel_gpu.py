@@ -1,5 +1,5 @@
-"""The CUDA fused step kernel against its plain PyTorch version on the
-card, bit-exact on every output. Marked ``gpu``: they skip without a CUDA
+"""The CUDA fused step kernel and its observe entry against their plain
+PyTorch versions on the card, bit-exact on every output. Marked ``gpu``: they skip without a CUDA
 device. The file imports no JAX, so it also runs where only PyTorch is
 installed (``pytest tests/test_torch_kernel_gpu.py -m gpu --noconftest``)."""
 
@@ -10,8 +10,12 @@ import pytest
 import torch
 
 import minigrid_tpu_torch
+from minigrid_tpu_torch.envs.base import random_keys
 from minigrid_tpu_torch.ops.fused_step import (GROUP_LANES, KERNEL,
+                                               _fused_observe_cuda,
                                                _fused_rollout_cuda,
+                                               fused_observe,
+                                               fused_observe_reference,
                                                fused_rollout,
                                                fused_rollout_reference,
                                                launch_geometry, sm_count)
@@ -92,3 +96,62 @@ def _check_case(device, env, kind, B, reset, group_lanes=None, T=32):
     for name, a, b in zip(("obs", "reward", "term", "trunc"), got[1:],
                           want[1:]):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view,B,group_lanes", [
+    (3, 4096, None), (7, 4096, None), (9, 4096, None), (9, 1001, None),
+    *[(7, 1001, g) for g in GROUP_LANES]])
+def test_observe_entry_matches_plain_on_card(cuda_device, view, B,
+                                             group_lanes):
+    """The observe entry on DoorKey-8x8 states after 16 interaction steps
+    (doors opened, keys carried), at view sizes 3/7/9 and every G."""
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0",
+                                  device=cuda_device).packed()
+    env = env.replace_params(view_size=view)
+    _, st = env.reset(env.generator(0), B)
+    rng = np.random.default_rng(2)
+    actions = torch.from_numpy(INTERACT[rng.integers(0, 8, (16, B))]).to(
+        cuda_device)
+    st = fused_rollout(env.params, st, actions)[0]
+    launches = KERNEL.observe_launches
+    got = (fused_observe(env.params, st) if group_lanes is None else
+           _fused_observe_cuda(env.params, st, group_lanes))
+    torch.cuda.synchronize()
+    assert KERNEL.observe_launches == launches + 1
+    assert torch.equal(got, fused_observe_reference(env.params, st))
+    assert (st.carrying[:, 0] != 1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["regen", "independent", "fresh"])
+def test_reset_modes_step_then_observe_on_card(cuda_device, mode):
+    """Each three-stage reset launches the step entry once and the observe
+    entry once per step, and the observation it returns is the plain
+    observation of the state it returns."""
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0",
+                                  device=cuda_device).packed()
+    g = env.generator(1)
+    B = 512
+    _, st = env.reset(g, B)
+    st = st.replace(step_count=torch.full((B,), 639, dtype=torch.int32,
+                                          device=cuda_device))
+    keys = random_keys(g, (B, 2), cuda_device)
+    a = torch.zeros((B,), dtype=torch.int32, device=cuda_device)
+    counts = KERNEL.launches, KERNEL.observe_launches
+    if mode == "regen":
+        out = env.step_autoreset(keys, st, a, g)
+    elif mode == "independent":
+        out = env.step_autoreset_pooled(keys, st, a, env.make_pool(g, 64), g,
+                                        independent=True)
+    else:
+        out = env.step_autoreset_fresh(
+            keys, st, a, env.presample_fresh(g, 600),
+            torch.zeros((), dtype=torch.int32, device=cuda_device), 512)
+    torch.cuda.synchronize()
+    assert (KERNEL.launches, KERNEL.observe_launches) == (counts[0] + 1,
+                                                          counts[1] + 1)
+    obs, new = out[0], out[1]
+    assert out[4].all() and (new.step_count == 0).all()
+    assert torch.equal(obs["packed"], fused_observe_reference(env.params,
+                                                              new))

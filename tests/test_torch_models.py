@@ -131,7 +131,7 @@ def test_rollout_matches_jax_composition():
                          torch.from_numpy(gumbel),
                          pool_from_states(export(j_rows)))
     pobs0 = {k: torch.from_numpy(np.array(v)) for k, v in jobs.items()}
-    p_st, p_obs, traj = rollout(pm, penv, export(jst), pobs0, noise)
+    p_st, p_obs, traj, _ = rollout(pm, penv, export(jst), pobs0, noise)
 
     # the JAX reference, composed step by step
     def counts_of(tokens):

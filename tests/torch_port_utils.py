@@ -7,13 +7,22 @@ exported with ``jax.tree.map(np.asarray, ...)`` and rebuilt on the CPU by
 from __future__ import annotations
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 
 import minigrid_tpu
 from minigrid_tpu_torch.convert import env_state_from_numpy
+from minigrid_tpu_torch.core import constants as C
 
 CPU = "cpu"
+# torch threads per test process in the modules that train: pytest-xdist
+# runs several workers on the machine's cores, and torch's default of one
+# thread per core in each of them oversubscribes the CPU (two workers of
+# tests/test_torch_{ppo,learning}.py took 830 s at 8 threads each, 54 s at
+# 4 on an 8-core machine)
+TEST_THREADS = 2
 
 # interaction-biased action stream of tests/test_fused_step.py
 INTERACT = np.array([0, 1, 2, 2, 3, 4, 5, 5], np.int32)
@@ -54,3 +63,64 @@ def assert_state_equal(port, ref, fields=("grid", "agent_pos", "agent_dir",
         if k == "rng":
             want = want.view(np.int32)
         np.testing.assert_array_equal(got, want, err_msg=f"{msg} {k}")
+
+
+def jax_train_step_closures(train_step) -> dict:
+    """The closures of a JAX ``make_train_step`` result that the port's
+    module-level functions mirror: ``gae``, ``loss_fn`` and ``rollout``
+    (free variables of ``train_step_core``), and ``fresh_buffer`` /
+    ``fresh_window`` (free variables of ``rollout``)."""
+    def cells(fn):
+        out = {}
+        for k, c in zip(fn.__code__.co_freevars, fn.__closure__):
+            try:
+                out[k] = c.cell_contents
+            except ValueError:  # a variable this configuration never set
+                pass
+        return out
+
+    core = cells(train_step)["train_step_core"]
+    out = cells(core)
+    out.update({k: v for k, v in cells(out["rollout"]).items()
+                if k in ("fresh_buffer", "fresh_window")})
+    return out
+
+
+def doorkey_features(grid, agent_pos, agent_dir):
+    """Per DoorKey layout: split column, door row, key cell, agent cell and
+    direction."""
+    grid = np.asarray(grid)
+    B, W, H, _ = grid.shape
+    door = np.argwhere(grid[..., 0] == C.DOOR)
+    key = np.argwhere(grid[..., 0] == C.KEY)
+    assert len(door) == B and len(key) == B  # exactly one of each
+    assert (door[:, 0] == np.arange(B)).all()
+    pos = np.asarray(agent_pos)
+    return {
+        "split": door[:, 1],
+        "door_row": door[:, 2],
+        "key": key[:, 1] * H + key[:, 2],
+        "agent": pos[:, 0] * H + pos[:, 1],
+        "agent_dir": np.asarray(agent_dir),
+    }
+
+
+def chi2_same_distribution(a, b) -> float:
+    """p-value of a chi-square test that two samples of categories come
+    from one distribution."""
+    from scipy import stats as sps
+
+    cats = np.union1d(a, b)
+    table = np.stack([(np.asarray(a)[:, None] == cats).sum(0),
+                      (np.asarray(b)[:, None] == cats).sum(0)])
+    return sps.chi2_contingency(table)[1]
+
+
+@pytest.fixture(scope="module")
+def share_cpu():
+    """Run the module with :data:`TEST_THREADS` torch threads, then restore
+    the process's setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, TEST_THREADS))
+    yield
+    torch.set_num_threads(n)
