@@ -9,24 +9,35 @@ Phases, each fatal on failure:
 2. the fused step kernel against its plain PyTorch version on the card,
    bit-exact on every output, for every case below (another view size and
    every group width G among them); then its observe entry against plain
-   ``gen_obs`` on states taken after interaction steps, bit-exact;
+   ``gen_obs`` on states taken after interaction steps, bit-exact; then
+   both entries on states of each of the 14 other families (B=1024, T=32,
+   the interaction stream; MultiRoom's 25x25, RedBlueDoors' 16x8 and the
+   see-through families among them), the step entry with and without a
+   reset row;
 3. the main path through the public entry points: DoorKey-8x8 with packed
    observations, a 1024-entry layout pool, 4096 staggered envs, the bf16
    ActorCritic and one 128-step pooled rollout, with the kernel's launch
    count read before and after; then a small rollout replayed through the
    plain path on the CPU, and the regen, independent-pool and fresh-buffer
    resets stepped on the card and replayed on the CPU with the same
-   actions and candidate states;
+   actions and candidate states; then each of the 7 hook families'
+   ``step`` and pooled auto-reset (the hook path around the kernel)
+   stepped on the card and replayed on the CPU, bit-exact;
 4. the PPO train step at full width (B=4096, T=128, bf16 hidden=256,
    PPOConfig defaults) in each reset mode: pooled, fresh, regen, one
    warm-up step then three timed ones, with both entries' launch counts
-   read before and after; then one rotate epoch of the f32 update on the
-   card against the same epoch on the CPU;
+   set to 0 before and read after; then the same for MultiRoom-N6 (25x25)
+   pooled, Dynamic-Obstacles-16x16 pooled through the hook path and
+   Fetch-8x8-N3 fresh, with the device kernels per rollout step (profile);
+   then one rotate epoch of the f32 update on the card against the same
+   epoch on the CPU;
 5. timings: the rollout, pure packed stepping, and the kernel's device
    time per launch (profiler) at T=1 and T=128 for B=4096 and at T=128 for
    B=65536, with the group width G chosen for each, and the observe
    entry's at B=4096, beside their bounds (the larger of the byte and the
    integer-operation bound) and the plain versions' times (CUDA events);
+   the same at B=4096 on MultiRoom-N6 (25x25), RedBlueDoors-8x8 (16x8)
+   and Fetch-8x8-N3 (see-through walls), with each launch geometry;
 6. learning on the card: the JAX package's guards (Empty-5x5 regen,
    pooled+packed and fresh, 30 updates; DoorKey-5x5, 120 updates at
    B=256), then the greedy success rate of the DoorKey-5x5 policy.
@@ -38,6 +49,7 @@ the repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -49,6 +61,28 @@ BATCH = 4096
 POOL_SIZE = 1024
 ROLLOUT_LEN = 128
 SEED = 0
+# one ID of each family beyond DoorKey and Empty: the core-dynamics
+# families, then the hook families
+CORE_FAMILIES = ["MiniGrid-FourRooms-v0", "MiniGrid-LavaGapS7-v0",
+                 "MiniGrid-DistShift1-v0", "MiniGrid-LavaCrossingS11N5-v0",
+                 "MiniGrid-LockedRoom-v0", "MiniGrid-Playground-v0",
+                 "MiniGrid-MultiRoom-N6-v0"]
+HOOK_FAMILIES = ["MiniGrid-MemoryS13Random-v0", "MiniGrid-RedBlueDoors-8x8-v0",
+                 "MiniGrid-GoToObject-8x8-N2-v0", "MiniGrid-Fetch-8x8-N3-v0",
+                 "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-PutNear-8x8-N3-v0",
+                 "MiniGrid-Dynamic-Obstacles-16x16-v0"]
+# the train steps of other families: (env id, reset mode, fresh buffer
+# rows or None for the default sizing). A random policy ends a Fetch episode
+# at its first pickup, ~4x sooner than the max_steps the default sizing
+# assumes: its ~2350 rows left ~2600 resets a train step degraded (reset
+# overflow), so Fetch takes a buffer sized for ~8000 resets a rollout
+FAMILY_TRAIN = [("MiniGrid-MultiRoom-N6-v0", "pooled", None),
+                ("MiniGrid-Dynamic-Obstacles-16x16-v0", "pooled", None),
+                ("MiniGrid-Fetch-8x8-N3-v0", "fresh", 12288)]
+# the kernel's shapes timed beside DoorKey-8x8's: (name, env id)
+SHAPES = [("MultiRoom-N6 25x25", "MiniGrid-MultiRoom-N6-v0"),
+          ("RedBlueDoors-8x8 16x8", "MiniGrid-RedBlueDoors-8x8-v0"),
+          ("Fetch-8x8-N3 see-through", "MiniGrid-Fetch-8x8-N3-v0")]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # INT32 issue rate of an H100 SXM: 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x the 1.98 GHz boost clock that the
@@ -84,25 +118,28 @@ def device_ms(fn, reps: int, kernel: str = "fused_step_kernel") -> float:
     """Mean device time of one launch of ``kernel`` over ``reps`` calls of
     ``fn``, from the profiler's CUDA activity (CUPTI): the kernel's own time,
     whatever the host spends around the launches. The profiler now and then
-    drops one launch's record (seen once in 20 on an H100), so up to a
-    tenth of them may be missing; fewer fails."""
+    drops launch records (one in 20 on an H100; once 11 of 20 in a session
+    after others), so a session missing more than a tenth of them is
+    profiled again, three times at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
-    if not reps - max(1, reps // 10) <= len(us) <= reps:
-        raise AssertionError(f"profiled {len(us)} launches of {kernel}, "
-                             f"expected {reps}")
-    return sum(us) / len(us) / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.name]
+        if reps - max(1, reps // 10) <= len(us) <= reps:
+            return sum(us) / len(us) / 1e3
+        print(f"  profiled {len(us)} launches of {kernel} of {reps}; again")
+    raise AssertionError(f"profiled {len(us)} launches of {kernel}, "
+                         f"expected {reps}")
 
 
 def nbytes(*tensors) -> int:
@@ -156,6 +193,27 @@ def observe_bound_ms(states, obs, view_size: int):
               / INT32_OPS_PER_S * 1e3)
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def short(env_id: str) -> str:
+    return env_id[len("MiniGrid-"):-len("-v0")]
+
+
+def cuda_events(fn):
+    """(kernels, copies and sets) the card ran during ``fn()``, counted
+    from the profiler's CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    return len(names) - copies, copies
 
 
 def clone_generator(g):
@@ -221,6 +279,7 @@ def main() -> int:
     from minigrid_tpu_torch.envs.base import (autoreset_step_select,
                                               draw_independent_rows,
                                               independent_candidates,
+                                              presample_reset_states,
                                               random_keys)
     from minigrid_tpu_torch.models.eval import evaluate_success
     from minigrid_tpu_torch.models.ppo import (PPOConfig, epoch_minibatches,
@@ -232,8 +291,8 @@ def main() -> int:
     from minigrid_tpu_torch.ops import fused_step as F
     from minigrid_tpu_torch.ops.fused_step import (
         GROUP_LANES, KERNEL, _fused_observe_cuda, _fused_rollout_cuda,
-        fused_observe_reference, fused_rollout_reference, launch_geometry,
-        sm_count)
+        fused_observe_reference, fused_rollout_reference, has_step_hooks,
+        launch_geometry, sm_count)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -261,7 +320,9 @@ def main() -> int:
 
     print(f"  {sms} SMs; DoorKey-8x8 B={BATCH}: {geometry(BATCH)}; "
           f"B=65536: {geometry(65536)}; DoorKey-16x16 B=1000: "
-          f"{geometry(1000, 16, 16)}")
+          f"{geometry(1000, 16, 16)}; MultiRoom 25x25 B={BATCH}: "
+          f"{geometry(BATCH, 25, 25)}; RedBlueDoors 16x8 B={BATCH}: "
+          f"{geometry(BATCH, 16, 8)}")
 
     # --- 2. kernel against plain version -------------------------------
     def check(name, env_id, B, T, hint=None, reset=False, native=False,
@@ -316,7 +377,6 @@ def main() -> int:
         errs.append(check(f"DoorKey-8x8 G={G} B=1001 T=16 reset-row entry",
                           ENV_ID, 1001, 16, hint="interact", reset=True,
                           group_lanes=G))
-    max_err = max(errs)
 
     # the observe entry against plain gen_obs, on states after 16
     # interaction steps (doors opened, keys carried)
@@ -352,17 +412,33 @@ def main() -> int:
                       view=9),
     ] + [check_observe(f"DoorKey-8x8 G={G} B=1001", ENV_ID, 1001,
                        group_lanes=G) for G in GROUP_LANES]
+    # both entries on states of every other family: the step entry with
+    # and without a reset row, and the observe entry
+    for env_id in CORE_FAMILIES + HOOK_FAMILIES:
+        name = short(env_id)
+        errs.append(check(f"{name} B=1024 T=32 interaction stream", env_id,
+                          1024, 32, hint="interact"))
+        errs.append(check(f"{name} B=1024 T=32 reset-row entry", env_id,
+                          1024, 32, hint="interact", reset=True))
+        observe_errs.append(check_observe(f"{name} B=1024", env_id, 1024))
+    max_err = max(errs)
     observe_err = max(observe_errs)
 
-    # from here on the card path must never run the plain observation
-    plain_gen_obs = F.gen_obs
+    # from here on the card path must never run the plain transition or
+    # observation
+    plain_gen_obs, plain_step_core = F.gen_obs, F.step_core
 
     def gen_obs_on_cpu_only(params, state):
         if state.grid.is_cuda:
             raise AssertionError("plain gen_obs ran on CUDA tensors")
         return plain_gen_obs(params, state)
 
-    F.gen_obs = gen_obs_on_cpu_only
+    def step_core_on_cpu_only(params, state, action):
+        if state.grid.is_cuda:
+            raise AssertionError("plain step_core ran on CUDA tensors")
+        return plain_step_core(params, state, action)
+
+    F.gen_obs, F.step_core = gen_obs_on_cpu_only, step_core_on_cpu_only
 
     # --- 3. the main path -----------------------------------------------
     env = mt.make(ENV_ID, device="cuda").packed()
@@ -516,12 +592,64 @@ def main() -> int:
     for mode in ("regen", "independent", "fresh"):
         replay_resets(mode)
 
+    # the hook path: each hook family's step (the hooks in PyTorch around
+    # the step entry), then its pooled auto-reset (step, the row selected
+    # in PyTorch, the observe entry), on the card and replayed on the CPU
+    # with the same keys, actions and rows; the episodes end in the second
+    # half, so the resets select
+    def replay_hooks(env_id, B=256, T=16):
+        env = mt.make(env_id, device="cuda").packed()
+        cpu_env = mt.make(env_id, device="cpu").packed()
+        g = env.generator(SEED + 8)
+        _, st = env.reset(g, B)
+        ms = env.params.max_steps
+        st = st.replace(step_count=(ms - 1 - torch.arange(
+            B, device="cuda") % (2 * T)).to(torch.int32))
+        st_c = st.map(lambda x: x.cpu())
+        rows = presample_reset_states(g, env.make_pool(g, 32), T)
+        choice = torch.tensor([0, 1, 2, 2, 3, 4, 5, 5, 6], device="cuda")
+        n_done = 0
+        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        for t in range(T):
+            keys = random_keys(g, (B, 2), "cuda")
+            a = choice[torch.randint(0, len(choice), (B,), generator=g,
+                                     device="cuda")].to(torch.int32)
+            k_c, a_c = keys.cpu(), a.cpu()
+            if t < T // 2:
+                out = env.step(keys, st, a)
+                ref = cpu_env.step(k_c, st_c, a_c)
+            else:
+                out = env.step_autoreset_presampled(keys, st, a, rows.rows(t))
+                ref = cpu_env.step_autoreset_presampled(
+                    k_c, st_c, a_c, rows.rows(t).to("cpu"))
+            for name, x, y in zip(("obs", "state", "reward", "terminated",
+                                   "truncated"), out[:5], ref[:5]):
+                assert_same(f"{short(env_id)} hook step {t} {name}", x, y)
+            st, st_c = out[1], ref[1]
+            n_done += int((out[3] | out[4]).sum())
+        launched = (KERNEL.launches - l0, KERNEL.observe_launches - o0)
+        if launched != (T, T // 2):
+            raise AssertionError(f"{env_id}: (step, observe) launches "
+                                 f"{launched}, expected {(T, T // 2)}")
+        if n_done < B // 2:
+            raise AssertionError(f"{env_id}: only {n_done} episodes ended")
+        print(f"hook path, {short(env_id)} (B={B}, T={T}): {n_done} "
+              f"episodes ended; {T} step + {T // 2} observe launches; card "
+              f"== CPU replay, extra included")
+
+    for env_id in HOOK_FAMILIES:
+        replay_hooks(env_id)
+
     # --- 4. the train step at full width --------------------------------
     cfg = PPOConfig()  # B=4096, T=128, 1 epoch of 4 rotate minibatches
     assert (cfg.num_envs, cfg.rollout_len) == (BATCH, ROLLOUT_LEN)
-    train = {}
-    for mode in ("pooled", "fresh", "regen"):
-        tenv = mt.make(ENV_ID, device="cuda").packed()
+
+    def train_phase(env_id, mode, fresh_buffer=None):
+        """One warm-up train step, then three timed ones with both
+        entries' launch counts set to 0 before and read after; then one
+        more rollout and update timed apart, and one rollout under the
+        profiler for the device kernels per step."""
+        tenv = mt.make(env_id, device="cuda").packed()
         tg = tenv.generator(SEED + 5)
         model = init_params(ActorCritic(hidden=256, dtype=torch.bfloat16,
                                         device="cuda"), tg)
@@ -529,7 +657,8 @@ def main() -> int:
         tpool = (tenv.make_pool(tg, POOL_SIZE) if mode == "pooled"
                  else None)
         obs, st = tenv.reset_staggered(tg, BATCH)
-        step = make_train_step(tenv, model, cfg, opt, resets=mode)
+        step = make_train_step(tenv, model, cfg, opt, resets=mode,
+                               fresh_buffer=fresh_buffer)
         st, obs, _ = step(st, obs, tg, tpool)               # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -542,49 +671,73 @@ def main() -> int:
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / 3
         launches_t = KERNEL.launches, KERNEL.observe_launches
-        want = (3 * ROLLOUT_LEN, 0 if mode == "pooled" else 3 * ROLLOUT_LEN)
+        one_launch = mode == "pooled" and not has_step_hooks(tenv)
+        want = (3 * ROLLOUT_LEN, 0 if one_launch else 3 * ROLLOUT_LEN)
         if launches_t != want:
-            raise AssertionError(f"{mode} train steps: (step, observe) "
-                                 f"launches {launches_t}, expected {want}")
+            raise AssertionError(f"{short(env_id)} {mode} train steps: "
+                                 f"(step, observe) launches {launches_t}, "
+                                 f"expected {want}")
         metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
         for m in metrics:
             if not all(math.isfinite(v) for v in m.values()):
                 raise AssertionError(f"{mode}: metrics not finite: {m}")
             if m.get("reset_overflow", 0) != 0:
                 raise AssertionError(f"{mode}: reset_overflow {m}")
+        lo, hi = tenv.reward_range
+        if not lo <= metrics[-1]["mean_reward"] <= hi:
+            raise AssertionError(f"{mode}: mean reward out of range")
         peak = torch.cuda.max_memory_allocated() / 2**30
         # where the time goes: the rollout and the update of one more
         # step, timed apart
         noise = sample_rollout_noise(tg, tpool, BATCH, ROLLOUT_LEN,
                                      model.num_actions, device="cuda")
-        n_buf, window = (fresh_sizes(tenv, cfg) if mode == "fresh"
-                         else (None, 32))
+        n_buf, window = (fresh_sizes(tenv, cfg, fresh_buffer)
+                         if mode == "fresh" else (None, 32))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st, obs, traj, _ = rollout(model, tenv, st, obs, noise, mode, tg,
                                    n_buf, window)
         torch.cuda.synchronize()
         rollout_only = time.perf_counter() - t0
+        n_done = int(traj.done.sum())
         t0 = time.perf_counter()
         ppo_update(model, opt, cfg, traj, obs, tg)
         torch.cuda.synchronize()
         update_only = time.perf_counter() - t0
+        noise = sample_rollout_noise(tg, tpool, BATCH, ROLLOUT_LEN,
+                                     model.num_actions, device="cuda")
+        # profiled at the end of the script, after the kernel timings (a
+        # profiler session after these large ones has lost records)
+        profile_rollout = lambda: cuda_events(lambda: rollout(
+            model, tenv, st, obs, noise, mode, tg, n_buf, window))
         rate = BATCH * ROLLOUT_LEN / step_s
-        train[mode] = {"env_steps_per_s": rate, "step_s": step_s,
-                       "rollout_s": rollout_only, "update_s": update_only,
-                       "launches_per_step": launches_t[0] // 3,
-                       "observe_launches_per_step": launches_t[1] // 3,
-                       "peak_gib": peak, "metrics": metrics[-1]}
-        print(f"train step, {mode} resets: {rate:.0f} env-steps/s (B={BATCH},"
-              f" T={ROLLOUT_LEN}, bf16 hidden=256; {step_s * 1e3:.1f} ms per "
-              f"step; apart: rollout {rollout_only * 1e3:.1f} ms, update "
-              f"{update_only * 1e3:.1f} ms; "
-              f"{launches_t[0] // 3} step + {launches_t[1] // 3} observe "
-              f"launches per step; peak {peak:.2f} GiB; host clock; {card})")
+        name = short(env_id)
+        print(f"train step, {name} {mode} resets: {rate:.0f} env-steps/s "
+              f"(B={BATCH}, T={ROLLOUT_LEN}, bf16 hidden=256; "
+              f"{step_s * 1e3:.1f} ms per step; apart: rollout "
+              f"{rollout_only * 1e3:.1f} ms, update {update_only * 1e3:.1f} "
+              f"ms; {launches_t[0] // 3} step + {launches_t[1] // 3} observe "
+              f"launches per step; {n_done} episodes ended in the rollout; "
+              f"peak "
+              f"{peak:.2f} GiB; host clock; {card})")
         print(f"  metrics of the last step: {json.dumps(metrics[-1])}")
         if mode == "fresh":
             print(f"  fresh buffer {n_buf} rows, window {window}")
-        del model, opt, step, st, obs, noise, traj
+        if n_done == 0:
+            raise AssertionError(f"{name} {mode}: no episode ended")
+        return {"env_steps_per_s": rate, "step_s": step_s,
+                "rollout_s": rollout_only, "update_s": update_only,
+                "launches_per_step": launches_t[0] // 3,
+                "observe_launches_per_step": launches_t[1] // 3,
+                "peak_gib": peak, "metrics": metrics[-1]}, profile_rollout
+
+    train, profile_later = {}, {}
+    for mode in ("pooled", "fresh", "regen"):
+        train[mode], profile_later[mode] = train_phase(ENV_ID, mode)
+    for env_id, mode, fresh_buffer in FAMILY_TRAIN:
+        key = f"{short(env_id)} {mode}"
+        train[key], profile_later[key] = train_phase(env_id, mode,
+                                                     fresh_buffer)
     torch.cuda.empty_cache()
 
     # one rotate epoch of the f32 update on the card and on the CPU, from
@@ -622,7 +775,7 @@ def main() -> int:
           f"parameters moved up to {moved:.3g})")
     if not update_err <= 1e-4:
         raise AssertionError(f"card and CPU updates differ by {update_err}")
-    F.gen_obs = plain_gen_obs
+    F.gen_obs, F.step_core = plain_gen_obs, plain_step_core
 
     # --- 5. timings -----------------------------------------------------
     rollout_rate = BATCH * ROLLOUT_LEN / rollout_s
@@ -660,6 +813,8 @@ def main() -> int:
     run_big = lambda: _fused_rollout_cuda(p, st_big, a_big, False, None,
                                           None)
     ms_big = device_ms(run_big, 5)
+    plain_ms_big = cuda_ms(
+        lambda: fused_rollout_reference(p, st_big, a_big, False), 1)
     bound_big, by_big = bound_ms(launch_bytes(st_big, a_big, run_big()),
                                  big * 128, V)
     del st_big, a_big
@@ -678,7 +833,7 @@ def main() -> int:
           f"{by128}, plain version {plain_ms128 * 1e3:.1f} us)")
     print(f"  B={big} T=128 pure, G={groups[f't128_b{big}']}: "
           f"{ms_big * 1e3:.2f} us (bound {bound_big * 1e3:.2f} us by "
-          f"{by_big})")
+          f"{by_big}, plain version {plain_ms_big * 1e3:.1f} us)")
 
     # the observe entry at B=4096 (the fresh and regen rollouts' shape)
     run_o = lambda: _fused_observe_cuda(p, st0)
@@ -689,6 +844,56 @@ def main() -> int:
           f"{ms_o * 1e3:.2f} us (bound {bound_o * 1e3:.2f} us by {by_o}, "
           f"{observe_bytes(st0, run_o()) / 1e6:.2f} MB; plain version "
           f"{plain_ms_o * 1e3:.1f} us)")
+
+    # the other families' shapes at B=4096: 25x25, 16x8, see-through
+    def shape_times(name, env_id):
+        senv = mt.make(env_id, device="cuda").packed()
+        sg = senv.generator(SEED + 9)
+        sp = senv.params
+        _, s0 = senv.reset(sg, BATCH)
+        row = senv.make_pool(sg, 16).rows(0)
+        s1 = torch.randint(0, 7, (1, BATCH), generator=sg, device="cuda",
+                           dtype=torch.int32)
+        s128 = torch.randint(0, 7, (128, BATCH), generator=sg,
+                             device="cuda", dtype=torch.int32)
+        r1 = lambda: _fused_rollout_cuda(sp, s0, s1, False, row.grid,
+                                         row.scal)
+        r128 = lambda: _fused_rollout_cuda(sp, s0, s128, False, None, None)
+        ro = lambda: _fused_observe_cuda(sp, s0)
+        sv = sp.view_size
+        out = {"ms_t1": device_ms(r1, 100),
+               "plain_ms_t1": cuda_ms(lambda: fused_rollout_reference(
+                   sp, s0, s1, False, row.grid, row.scal), 5),
+               "ms_t128": device_ms(r128, 10),
+               "plain_ms_t128": cuda_ms(lambda: fused_rollout_reference(
+                   sp, s0, s128, False), 1),
+               "observe_ms": device_ms(ro, 100,
+                                       kernel="fused_observe_kernel"),
+               "observe_plain_ms": cuda_ms(
+                   lambda: fused_observe_reference(sp, s0), 5),
+               "launch_geometry": dataclasses.asdict(launch_geometry(
+                   BATCH, sp.width, sp.height, sv, sms))}
+        out["bound_ms_t1"], out["bound_by_t1"] = bound_ms(
+            launch_bytes(s0, s1, r1(), row.grid, row.scal), BATCH, sv)
+        out["bound_ms_t128"], out["bound_by_t128"] = bound_ms(
+            launch_bytes(s0, s128, r128()), BATCH * 128, sv)
+        out["observe_bound_ms"], out["observe_bound_by"] = observe_bound_ms(
+            s0, ro(), sv)
+        print(f"  {name} ({sp.width}x{sp.height}, see_through_walls="
+              f"{sp.see_through_walls}), B={BATCH}, "
+              f"{geometry(BATCH, sp.width, sp.height)}: T=1 with reset row "
+              f"{out['ms_t1'] * 1e3:.2f} us (bound "
+              f"{out['bound_ms_t1'] * 1e3:.2f} us, plain "
+              f"{out['plain_ms_t1'] * 1e3:.1f} us); T=128 "
+              f"{out['ms_t128'] * 1e3:.2f} us (bound "
+              f"{out['bound_ms_t128'] * 1e3:.2f} us, plain "
+              f"{out['plain_ms_t128'] * 1e3:.1f} us); observe "
+              f"{out['observe_ms'] * 1e3:.2f} us (bound "
+              f"{out['observe_bound_ms'] * 1e3:.2f} us, plain "
+              f"{out['observe_plain_ms'] * 1e3:.1f} us)")
+        return out
+
+    shapes = {name: shape_times(name, env_id) for name, env_id in SHAPES}
 
     # pure packed stepping: one T=128 launch per chunk, the state carried
     # from chunk to chunk (host clock around the synchronised chunks)
@@ -705,6 +910,16 @@ def main() -> int:
     pure_rate = chunks * 128 * BATCH / (time.perf_counter() - t0)
     print(f"pure packed stepping: {pure_rate:.0f} env-steps/s (B={BATCH}, "
           f"T=128 per launch; {card})")
+
+    # device kernels per rollout step of each train step's rollout
+    for key, later in profile_later.items():
+        kernels, copies = later()
+        train[key]["device_kernels_per_rollout_step"] = kernels / ROLLOUT_LEN
+        train[key]["copies_per_rollout_step"] = copies / ROLLOUT_LEN
+        print(f"rollout of the {key} train step under the profiler: "
+              f"{kernels / ROLLOUT_LEN:.1f} device kernels + "
+              f"{copies / ROLLOUT_LEN:.1f} copies per step ({card})")
+    del profile_later
 
     # --- 6. learning on the card ----------------------------------------
     def learn(env_id, updates, resets, packed, num_epochs=2, num_envs=128,
@@ -778,7 +993,11 @@ def main() -> int:
         "bound_ms_t128": bound128,
         "ms_t128_b65536": ms_big,
         "bound_ms_t128_b65536": bound_big,
+        "plain_ms_t128_b65536": plain_ms_big,
         "group_lanes": groups,
+        "shapes": {k: {kk: vv for kk, vv in v.items()
+                       if not kk.startswith("observe")}
+                   for k, v in shapes.items()},
     }, {
         "name": "fused_step_observe",
         "route": "cuda",
@@ -793,6 +1012,12 @@ def main() -> int:
         "bound_ms": bound_o,
         "bound_by": by_o,
         "library_ms": None,
+        "shapes": {k: {"ms": v["observe_ms"],
+                       "plain_ms": v["observe_plain_ms"],
+                       "bound_ms": v["observe_bound_ms"],
+                       "bound_by": v["observe_bound_by"],
+                       "launch_geometry": v["launch_geometry"]}
+                   for k, v in shapes.items()},
     }]
     print(json.dumps({"train_step": {k: {kk: vv for kk, vv in t.items()
                                          if kk != "metrics"}

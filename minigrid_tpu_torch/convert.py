@@ -11,7 +11,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from minigrid_tpu_torch.core.types import EnvState, resolve_device
+from minigrid_tpu_torch.core.types import (STATE_FIELDS, EnvState,
+                                           resolve_device)
 from minigrid_tpu_torch.envs.base import LayoutPool, pool_from_states
 
 DENSE_LAYERS = ("img_in", "trunk1", "trunk2", "policy", "value")
@@ -67,10 +68,18 @@ def _field(src, name):
     return src[name] if isinstance(src, Mapping) else getattr(src, name)
 
 
+def _extra(src):
+    """The ``extra`` of an exported state: None, or a mapping of arrays."""
+    if isinstance(src, Mapping):
+        return src.get("extra")
+    return getattr(src, "extra", None)
+
+
 def env_state_from_numpy(src, device=None) -> EnvState:
     """A batched EnvState exported from JAX (an object or mapping with the
-    EnvState fields as numpy-convertible arrays, batch-leading). JAX keys
-    (uint32) keep their bit pattern as int32."""
+    EnvState fields as numpy-convertible arrays, batch-leading, and
+    ``extra`` a mapping of such arrays or None). JAX keys (uint32) keep
+    their bit pattern as int32; ``extra`` keeps its dtypes."""
     dev = resolve_device(device)
 
     def t(name, dtype):
@@ -78,6 +87,10 @@ def env_state_from_numpy(src, device=None) -> EnvState:
                                device=dev)
 
     rng = np.array(_field(src, "rng"))  # a writable copy
+    extra = _extra(src)
+    if extra is not None:
+        extra = {k: torch.as_tensor(np.array(v), device=dev)
+                 for k, v in extra.items()}
     return EnvState(
         grid=t("grid", np.uint8),
         agent_pos=t("agent_pos", np.int32),
@@ -88,14 +101,17 @@ def env_state_from_numpy(src, device=None) -> EnvState:
         truncated=t("truncated", np.bool_),
         mission=t("mission", np.int32),
         rng=torch.as_tensor(rng.view(np.int32), device=dev),
+        extra=extra,
     )
 
 
 def layout_pool_from_entries(entries, device=None) -> LayoutPool:
     """JAX pool entries (``LayoutPool.entry(i)``, one unbatched EnvState
     each) -> the port's pool with the same rows in the same order."""
-    names = ("grid", "agent_pos", "agent_dir", "carrying", "step_count",
-             "terminated", "truncated", "mission", "rng")
     stacked = {n: np.stack([np.asarray(_field(e, n)) for e in entries])
-               for n in names}
+               for n in STATE_FIELDS}
+    extras = [_extra(e) for e in entries]
+    if extras[0] is not None:
+        stacked["extra"] = {k: np.stack([np.asarray(x[k]) for x in extras])
+                            for k in extras[0]}
     return pool_from_states(env_state_from_numpy(stacked, device))

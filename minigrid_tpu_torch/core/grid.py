@@ -40,8 +40,9 @@ def coord_grids(width: int, height: int, device=None):
     return xs, ys
 
 
-def _blend(grid, mask, cell):
-    """Write ``cell`` ((5,) or (B, 5)) wherever the (B|1, W, H) mask holds."""
+def fill_mask(grid: torch.Tensor, mask: torch.Tensor, cell) -> torch.Tensor:
+    """Write ``cell`` ((5,) or (B, 5)) wherever the (B|1, W, H) mask
+    holds."""
     cell = _cell(cell, grid.device)
     if cell.ndim == 2:
         cell = cell[:, None, None, :]
@@ -52,7 +53,7 @@ def set_cell(grid: torch.Tensor, x, y, cell) -> torch.Tensor:
     """Write one cell per env at (x, y)."""
     xs, ys = coord_grids(grid.shape[1], grid.shape[2], grid.device)
     m = (xs == _per_env(x, grid.device)) & (ys == _per_env(y, grid.device))
-    return _blend(grid, m, cell)
+    return fill_mask(grid, m, cell)
 
 
 def fill_rect(grid: torch.Tensor, x0, y0, w, h, cell) -> torch.Tensor:
@@ -62,7 +63,7 @@ def fill_rect(grid: torch.Tensor, x0, y0, w, h, cell) -> torch.Tensor:
     x0, y0 = _per_env(x0, dev), _per_env(y0, dev)
     w, h = _per_env(w, dev), _per_env(h, dev)
     mask = (xs >= x0) & (xs < x0 + w) & (ys >= y0) & (ys < y0 + h)
-    return _blend(grid, mask, cell)
+    return fill_mask(grid, mask, cell)
 
 
 def horz_wall(grid, x, y, length=None, cell=None):

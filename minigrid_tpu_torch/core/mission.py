@@ -58,3 +58,9 @@ def detokenize(tokens) -> str:
     """Host-side: id vector -> mission string (inverse of tokenize)."""
     words = [ID_TO_WORD[int(t)] for t in np.asarray(tokens) if int(t) != 0]
     return " ".join(words).replace(" , ", ", ")
+
+
+def mission_table(missions: list[str],
+                  length: int = MISSION_LEN) -> np.ndarray:
+    """(N, length) table of tokenized missions, for categorical sampling."""
+    return np.stack([tokenize(m, length) for m in missions])

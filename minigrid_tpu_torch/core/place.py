@@ -56,19 +56,41 @@ def placeable_mask(grid: torch.Tensor, agent_pos=None, top=None,
     return mask
 
 
-def place_obj(generator, grid, cell, agent_pos, top=None, size=None):
+def place_obj(generator, grid, cell, agent_pos, top=None, size=None,
+              reject_mask=None):
     """Place ``cell`` uniformly over each env's acceptable positions.
+    ``reject_mask`` ((B|1, W, H) bool) marks forbidden cells (the
+    reference's reject_fn returning True, minigrid_env.py:361).
 
     Returns (new_grid, pos)."""
-    pos = sample_from_mask(generator,
-                           placeable_mask(grid, agent_pos, top, size))
+    mask = placeable_mask(grid, agent_pos, top, size)
+    if reject_mask is not None:
+        mask = mask & ~reject_mask
+    pos = sample_from_mask(generator, mask)
     return G.set_cell(grid, pos[:, 0], pos[:, 1], cell), pos
 
 
-def place_agent(generator, grid, top=None, size=None):
+def place_agent(generator, grid, top=None, size=None, rand_dir=True,
+                reject_mask=None):
     """Agent start placement at a uniform free cell, facing a uniform
-    direction (minigrid_env.py:383-395). Returns (pos, dir)."""
-    pos = sample_from_mask(generator, placeable_mask(grid, None, top, size))
-    agent_dir = torch.randint(0, 4, (grid.shape[0],), generator=generator,
-                              device=grid.device, dtype=torch.int32)
+    direction, or direction 0 without ``rand_dir`` (minigrid_env.py:383-395).
+    Returns (pos, dir)."""
+    mask = placeable_mask(grid, None, top, size)
+    if reject_mask is not None:
+        mask = mask & ~reject_mask
+    pos = sample_from_mask(generator, mask)
+    if rand_dir:
+        agent_dir = torch.randint(0, 4, (grid.shape[0],), generator=generator,
+                                  device=grid.device, dtype=torch.int32)
+    else:
+        agent_dir = torch.zeros((grid.shape[0],), dtype=torch.int32,
+                                device=grid.device)
     return pos, agent_dir
+
+
+def neighbor_mask(width: int, height: int, pos) -> torch.Tensor:
+    """(B, W, H) mask of the 8-neighbourhood of each env's ``pos`` ((B, 2))
+    including the cell itself (core/roomgrid.py's reject_next_to)."""
+    xs, ys = G.coord_grids(width, height, pos.device)
+    return (((xs - G._per_env(pos[:, 0], pos.device)).abs() <= 1)
+            & ((ys - G._per_env(pos[:, 1], pos.device)).abs() <= 1))

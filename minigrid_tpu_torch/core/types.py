@@ -43,6 +43,9 @@ class EnvState:
     truncated: torch.Tensor   # (B,) bool
     mission: torch.Tensor     # (B, MISSION_LEN) int32 token ids (0 = pad)
     rng: torch.Tensor         # (B, 2) int32 — bit pattern of a JAX-style key
+    # family-specific state, a dict of batch-leading tensors (e.g. Memory's
+    # success_pos (B, 2) int32), or None: JAX's ``extra`` pytree, batched
+    extra: dict | None = None
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
@@ -56,13 +59,32 @@ class EnvState:
         return self.grid.device
 
     def tensors(self) -> dict:
-        """The fields by name."""
-        return {f.name: getattr(self, f.name)
-                for f in dataclasses.fields(self)}
+        """Every tensor by name: the fields, then each entry of ``extra``
+        as ``"extra.<key>"``."""
+        out = {f: getattr(self, f) for f in STATE_FIELDS}
+        for k, v in (self.extra or {}).items():
+            out[EXTRA_PREFIX + k] = v
+        return out
+
+    def with_tensors(self, tensors: dict) -> "EnvState":
+        """This state with the tensors named as :meth:`tensors` names them
+        replaced; ``extra`` keeps its keys."""
+        kw = {k: v for k, v in tensors.items() if k in STATE_FIELDS}
+        if self.extra is not None:
+            kw["extra"] = {k: tensors.get(EXTRA_PREFIX + k, v)
+                           for k, v in self.extra.items()}
+        return self.replace(**kw)
 
     def map(self, fn) -> "EnvState":
-        """Apply ``fn`` to every field (e.g. index or move)."""
-        return self.replace(**{k: fn(v) for k, v in self.tensors().items()})
+        """Apply ``fn`` to every tensor, ``extra``'s included (e.g. index
+        or move)."""
+        return self.with_tensors({k: fn(v)
+                                  for k, v in self.tensors().items()})
+
+
+STATE_FIELDS = ("grid", "agent_pos", "agent_dir", "carrying", "step_count",
+                "terminated", "truncated", "mission", "rng")
+EXTRA_PREFIX = "extra."
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,13 +13,20 @@ batch-leading tensors (no ``vmap``), and randomness comes from explicit
 dynamics never read it, and the pooled auto-reset derives each reset
 episode's ``rng`` from it exactly as the JAX package does.
 
-On the card, ``step`` and the pooled auto-reset run the fused CUDA kernel
-(``ops/fused_step.py``) for every env without step hooks; on the CPU they
-run its plain version. The resets that put a different state into each
-finished env (regenerated layouts, per-env pool rows, the fresh buffer) run
-in three stages: the fused step without a reset row, the select in PyTorch
-(:func:`select_reset_states`, which takes the candidate states as an
-argument), and the kernel's observe entry on the selected states.
+On the card every transition is the fused CUDA kernel's
+(``ops/fused_step.py``); on the CPU it is its plain version. An env without
+step hooks steps and takes the pooled broadcast row in one launch. An env
+that overrides ``_transform_action``, ``_pre_step`` or ``_post_step``
+(:func:`has_step_hooks`) runs the hook path, :func:`hooked_step`: the
+action transform and ``_pre_step`` in PyTorch, the kernel's step entry
+without a reset row (``extra``, ``rng`` and ``mission`` pass through it
+untouched), then ``_post_step`` in PyTorch. The resets that put a different
+state into each finished env (regenerated layouts, per-env pool rows, the
+fresh buffer, and for a hook env the broadcast row too, since
+``_post_step`` may end an episode after the kernel's done test) run in
+three stages: that step, the select in PyTorch (:func:`select_reset_states`,
+which takes the candidate states as an argument), and the kernel's observe
+entry on the selected states.
 """
 
 from __future__ import annotations
@@ -30,13 +37,13 @@ import numpy as np
 import torch
 
 from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.core.actions import NUM_ACTIONS
 from minigrid_tpu_torch.core.mission import tokenize
 from minigrid_tpu_torch.core.obs import packed_to_image
-from minigrid_tpu_torch.core.step import step_core
 from minigrid_tpu_torch.core.types import (MISSION_LEN, EnvParams, EnvState,
                                            resolve_device)
 from minigrid_tpu_torch.ops.fused_step import (fused_observe, fused_rollout,
-                                               pack_rows,
+                                               has_step_hooks, pack_rows,
                                                require_core_dynamics,
                                                unpack_rows)
 
@@ -55,15 +62,17 @@ def random_keys(generator: torch.Generator, shape, device) -> torch.Tensor:
 class LayoutPool:
     """Device-resident pool of P pre-generated reset states, in the fused
     kernel's row format: packed grid (P, W*H) and scalars (P, NSCAL) int32
-    (``ops.fused_step.pack_rows``), plus the mission tokens (P, L) int32.
-    A pool of T rows is also what :func:`presample_reset_states` returns:
-    one broadcast reset row per upcoming step."""
+    (``ops.fused_step.pack_rows``), plus the mission tokens (P, L) int32
+    and the family's ``extra`` tensors (P, ...), or None. A pool of T rows
+    is also what :func:`presample_reset_states` returns: one broadcast
+    reset row per upcoming step."""
 
     grid: torch.Tensor
     scal: torch.Tensor
     mission: torch.Tensor
     width: int
     height: int
+    extra: dict | None = None
 
     @property
     def size(self) -> int:
@@ -73,14 +82,17 @@ class LayoutPool:
         """The pool restricted to rows ``idx`` (an int keeps one row)."""
         if isinstance(idx, int):
             idx = slice(idx, idx + 1)
-        return dataclasses.replace(self, grid=self.grid[idx],
-                                   scal=self.scal[idx],
-                                   mission=self.mission[idx])
+        return self._map(lambda x: x[idx])
 
     def to(self, device) -> "LayoutPool":
-        return dataclasses.replace(self, grid=self.grid.to(device),
-                                   scal=self.scal.to(device),
-                                   mission=self.mission.to(device))
+        return self._map(lambda x: x.to(device))
+
+    def _map(self, fn) -> "LayoutPool":
+        extra = (None if self.extra is None
+                 else {k: fn(v) for k, v in self.extra.items()})
+        return dataclasses.replace(self, grid=fn(self.grid),
+                                   scal=fn(self.scal),
+                                   mission=fn(self.mission), extra=extra)
 
     def entry(self, i: int) -> EnvState:
         """Pool entry ``i`` as a batch-of-one EnvState (rng zero)."""
@@ -90,9 +102,12 @@ class LayoutPool:
 def pool_from_states(states: EnvState) -> LayoutPool:
     """Serialize a batched EnvState into pool rows."""
     grid, scal = pack_rows(states)
+    extra = (None if states.extra is None
+             else {k: v.contiguous() for k, v in states.extra.items()})
     return LayoutPool(grid=grid, scal=scal,
                       mission=states.mission.contiguous(),
-                      width=states.grid.shape[1], height=states.grid.shape[2])
+                      width=states.grid.shape[1], height=states.grid.shape[2],
+                      extra=extra)
 
 
 def states_from_pool(rows: LayoutPool) -> EnvState:
@@ -100,7 +115,8 @@ def states_from_pool(rows: LayoutPool) -> EnvState:
     core = unpack_rows(rows.grid, rows.scal, rows.width, rows.height)
     return EnvState(**core, mission=rows.mission,
                     rng=torch.zeros((rows.size, 2), dtype=torch.int32,
-                                    device=rows.grid.device))
+                                    device=rows.grid.device),
+                    extra=rows.extra)
 
 
 def make_layout_pool(env, generator: torch.Generator,
@@ -131,7 +147,7 @@ def draw_pool_row(generator: torch.Generator, pool: LayoutPool) -> LayoutPool:
 
 def _apply_broadcast_reset(keys, st: EnvState, done, reset_row: LayoutPool):
     """The episode fields of the broadcast reset: finished envs take the
-    row's mission and a fresh rng, ``keys ^ RESET_RNG_SALT``.
+    row's mission and ``extra`` and a fresh rng, ``keys ^ RESET_RNG_SALT``.
 
     The row's grid and agent fields are selected inside the fused step
     (kernel or plain version), after the transition and before the one
@@ -139,17 +155,37 @@ def _apply_broadcast_reset(keys, st: EnvState, done, reset_row: LayoutPool):
     this completes the select on the fields the kernel does not carry."""
     salt = torch.as_tensor(RESET_RNG_SALT, device=keys.device)
     d = done[:, None]
+    kw = {}
+    if st.extra is not None:
+        kw["extra"] = {
+            k: torch.where(done.reshape((-1,) + (1,) * (v.ndim - 1)),
+                           reset_row.extra[k], v)
+            for k, v in st.extra.items()}
     return st.replace(
         rng=torch.where(d, keys ^ salt, st.rng),
-        mission=torch.where(d, reset_row.mission, st.mission))
+        mission=torch.where(d, reset_row.mission, st.mission), **kw)
+
+
+def broadcast_candidates(keys, reset_row: LayoutPool) -> EnvState:
+    """The reset states of the broadcast row for the three-stage select:
+    the row (batch of one, broadcast by the select) with the fresh rng
+    ``keys ^ RESET_RNG_SALT``."""
+    salt = torch.as_tensor(RESET_RNG_SALT, device=keys.device)
+    return states_from_pool(reset_row).replace(rng=keys ^ salt)
 
 
 def autoreset_step_presampled(env, keys, states: EnvState, actions,
                               reset_row: LayoutPool):
     """BATCHED auto-resetting step with this step's broadcast reset row
-    (see :func:`presample_reset_states`): one fused step with the row, then
-    the episode fields. Returns (obs, state, reward, terminated, truncated,
-    info); reward and flags report the finishing step."""
+    (see :func:`presample_reset_states`): for an env without step hooks one
+    fused step with the row, then the episode fields; for a hook env the
+    hook step, the row selected in PyTorch and the observe entry. Returns
+    (obs, state, reward, terminated, truncated, info); reward and flags
+    report the finishing step."""
+    if has_step_hooks(env):
+        return autoreset_step_select(env, states, actions,
+                                     broadcast_candidates(keys, reset_row),
+                                     keys)
     require_core_dynamics(env)
     st, obs, reward, term, trunc = fused_rollout(
         env.params, states, _actions(actions)[None],
@@ -174,7 +210,8 @@ def autoreset_step_pooled(env, keys, states: EnvState, actions,
                                          draw_pool_row(generator, pool))
     idx = draw_independent_rows(generator, pool, states.batch_size)
     return autoreset_step_select(env, states, actions,
-                                 independent_candidates(keys, pool, idx))
+                                 independent_candidates(keys, pool, idx),
+                                 keys)
 
 
 def draw_independent_rows(generator: torch.Generator, pool: LayoutPool,
@@ -193,25 +230,28 @@ def independent_candidates(keys, pool: LayoutPool, idx) -> EnvState:
 
 def select_reset_states(done, states: EnvState,
                         candidates: EnvState) -> EnvState:
-    """Every field of ``candidates`` (B reset states, one per env) selected
-    into the envs where ``done``."""
-    def pick(cur, new):
-        mask = done.reshape((-1,) + (1,) * (cur.ndim - 1))
-        return torch.where(mask, new, cur)
+    """Every tensor of ``candidates`` (B reset states, one per env, or one
+    state broadcast to all), ``extra`` included, selected into the envs
+    where ``done``."""
+    new = candidates.tensors()
 
-    return states.replace(**{k: pick(v, getattr(candidates, k))
-                             for k, v in states.tensors().items()})
+    def pick(cur, k):
+        mask = done.reshape((-1,) + (1,) * (cur.ndim - 1))
+        return torch.where(mask, new[k], cur)
+
+    return states.with_tensors({k: pick(v, k)
+                                for k, v in states.tensors().items()})
 
 
 def autoreset_step_select(env, states: EnvState, actions,
-                          candidates: EnvState):
+                          candidates: EnvState, keys=None):
     """BATCHED auto-resetting step with one given reset state per env: the
-    fused step without a reset row, ``candidates`` selected into the
+    step without a reset row (:func:`hooked_step`; ``keys`` are the step
+    keys, which only a hook env reads), ``candidates`` selected into the
     finished envs (:func:`select_reset_states`), then the observation of
     the selected states (the kernel's observe entry on the card). Returns
     (obs, state, reward, terminated, truncated, info)."""
-    require_core_dynamics(env)
-    st, reward, term, trunc = _fused_step(env, states, actions)
+    st, _, reward, term, trunc = hooked_step(env, keys, states, actions)
     st = select_reset_states(term | trunc, st, candidates)
     return env._observe(st), st, reward, term, trunc, {}
 
@@ -257,8 +297,7 @@ def autoreset_step_fresh(env, keys, states: EnvState, actions,
     ``info["reset_overflow"]`` counts the finishers whose reset was not an
     untouched fresh row for either reason. Returns ``(obs, state, reward,
     terminated, truncated, info, new_cursor)``."""
-    require_core_dynamics(env)
-    st, reward, term, trunc = _fused_step(env, states, actions)
+    st, _, reward, term, trunc = hooked_step(env, keys, states, actions)
     obs, st, info, cursor = _fresh_select(env, keys, st, term | trunc,
                                           buffer, cursor, window)
     return obs, st, reward, term, trunc, info, cursor
@@ -304,12 +343,26 @@ def require_bare_env(env, what: str):
             f"{what} operates on bare envs (got {type(env).__name__})")
 
 
-def _fused_step(env, states: EnvState, actions):
-    """One fused step of every env, no reset row: (state, reward,
-    terminated, truncated); the step's observation is not kept."""
-    st, _, reward, term, trunc = fused_rollout(env.params, states,
-                                               _actions(actions)[None])
-    return st, reward[0], term[0], trunc[0]
+def hooked_step(env, keys, states: EnvState, actions):
+    """One step of every env through the fused step without a reset row
+    (the kernel's step entry on the card), with the env's step hooks
+    around it as the JAX package's ``step_state`` orders them: the action
+    transform and ``_pre_step`` (which may read ``keys``) before,
+    ``_post_step`` and the replaced ``terminated`` after. ``extra``, ``rng``
+    and ``mission`` pass through the fused step untouched.
+
+    Returns ``(state, obs, reward, terminated, truncated)``: ``obs`` is the
+    step entry's packed observation when ``_post_step`` returned the state
+    it was given (so the observation is that of the returned state), else
+    None."""
+    prev = states
+    action = _actions(env._transform_action(states, _actions(actions)))
+    states = env._pre_step(keys, states, action)
+    st, obs, reward, term, _ = fused_rollout(env.params, states, action[None])
+    new, reward, term = env._post_step(prev, st, action, reward[0], term[0])
+    obs = obs[0] if new is st else None
+    new = new.replace(terminated=term)
+    return new, obs, reward, term, new.truncated
 
 
 def _actions(actions) -> torch.Tensor:
@@ -319,6 +372,12 @@ def _actions(actions) -> torch.Tensor:
 class MiniGridEnv:
     """Base batched env. Instances are static config (``params``) and the
     device; all episode data lives in the batched :class:`EnvState`."""
+
+    reward_range = (0, 1)  # minigrid_env.py:61; DynamicObstacles overrides
+
+    @property
+    def num_actions(self) -> int:
+        return NUM_ACTIONS
 
     def __init__(self, params: EnvParams, device=None):
         self.params = params
@@ -344,8 +403,9 @@ class MiniGridEnv:
 
     # -- construction ----------------------------------------------------
     def make_state(self, grid, agent_pos, agent_dir, rng,
-                   mission=None) -> EnvState:
-        """A batch of fresh episodes from per-env grids and agent poses."""
+                   mission=None, extra=None) -> EnvState:
+        """A batch of fresh episodes from per-env grids and agent poses;
+        ``extra`` is the family's dict of (B, ...) tensors, or None."""
         B = grid.shape[0]
         dev = grid.device
         if mission is None:
@@ -363,6 +423,7 @@ class MiniGridEnv:
             truncated=torch.zeros((B,), dtype=torch.bool, device=dev),
             mission=mission.contiguous(),
             rng=rng,
+            extra=extra,
         )
 
     def _gen_grid(self, generator: torch.Generator, num_envs: int) -> EnvState:
@@ -406,24 +467,22 @@ class MiniGridEnv:
         return state, reward, terminated
 
     def step_state(self, keys, state: EnvState, action):
-        """The state transition alone, in plain PyTorch, hooks included.
+        """The state transition alone, hooks included: the fused step (the
+        kernel on the card) between the hooks, :func:`hooked_step`.
         Returns (state, reward, terminated, truncated)."""
-        prev = state
-        action = self._transform_action(state, action)
-        state = self._pre_step(keys, state, action)
-        new_state, reward, terminated = step_core(self.params, state, action)
-        new_state, reward, terminated = self._post_step(
-            prev, new_state, action, reward, terminated)
-        new_state = new_state.replace(terminated=terminated)
-        return new_state, reward, terminated, new_state.truncated
+        st, _, reward, term, trunc = hooked_step(self, keys, state, action)
+        return st, reward, term, trunc
 
     def step(self, keys, state: EnvState, action):
         """One step of every env through the fused step (the kernel on the
-        card). Returns (obs, state, reward, terminated, truncated, info)."""
-        require_core_dynamics(self)
-        st, obs, reward, term, trunc = fused_rollout(
-            self.params, state, _actions(action)[None])
-        return self._obs_dict(obs[0], st), st, reward[0], term[0], trunc[0], {}
+        card) and the env's hooks. The step entry's observation is kept
+        when ``_post_step`` left the state alone, else the state is
+        observed again. Returns (obs, state, reward, terminated, truncated,
+        info)."""
+        st, obs, reward, term, trunc = hooked_step(self, keys, state, action)
+        if obs is None:
+            obs = fused_observe(self.params, st)
+        return self._obs_dict(obs, st), st, reward, term, trunc, {}
 
     def step_autoreset(self, keys, states: EnvState, actions,
                        generator: torch.Generator):
@@ -433,7 +492,7 @@ class MiniGridEnv:
         flags report the finishing step."""
         return autoreset_step_select(
             self, states, actions,
-            self._gen_grid(generator, states.batch_size))
+            self._gen_grid(generator, states.batch_size), keys)
 
     def step_autoreset_presampled(self, keys, states: EnvState, actions,
                                   reset_row: LayoutPool):

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from minigrid_tpu_torch.envs.base import random_keys
+
 
 def evaluate_success(env, model, n_episodes: int = 1024,
                      generator: torch.Generator | None = None,
@@ -27,19 +29,22 @@ def evaluate_success(env, model, n_episodes: int = 1024,
         generator = env.generator(0)
     obs, state = env.reset(generator, n_episodes)
     return evaluate_success_from(env, model, obs, state, max_steps,
-                                 require_all_done)
+                                 require_all_done, generator)
 
 
 @torch.no_grad()
 def evaluate_success_from(env, model, obs: dict, state,
                           max_steps: int | None = None,
-                          require_all_done: bool = True) -> float:
+                          require_all_done: bool = True,
+                          generator: torch.Generator | None = None) -> float:
     """:func:`evaluate_success` on a given reset batch (``obs``, ``state``),
-    e.g. states exported from the JAX package."""
+    e.g. states exported from the JAX package. The step keys, which only
+    an env with in-step randomness reads (Dynamic-Obstacles), are drawn
+    from ``generator`` every step, or zero without one."""
     T = max_steps or int(env.params.max_steps)
     B = state.batch_size
     dev = state.device
-    keys = torch.zeros((B, 2), dtype=torch.int32, device=dev)  # unread
+    keys = torch.zeros((B, 2), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     success = torch.zeros((B,), dtype=torch.bool, device=dev)
 
@@ -49,10 +54,13 @@ def evaluate_success_from(env, model, obs: dict, state,
     for _ in range(T):
         logits, _ = model(obs)
         action = torch.argmax(logits, dim=-1)
+        if generator is not None:
+            keys = random_keys(generator, (B, 2), dev)
         obs2, st2, r, te, tr, _ = env.step(keys, state, action)
         success = success | (~done & te & (r > 0))
-        state = state.replace(**{
-            k: torch.where(frozen(v), v, getattr(st2, k))
+        new = st2.tensors()
+        state = state.with_tensors({
+            k: torch.where(frozen(v), v, new[k])
             for k, v in state.tensors().items()})
         obs = {k: torch.where(frozen(v), v, obs2[k]) for k, v in obs.items()}
         done = done | te | tr

@@ -5,12 +5,14 @@ Counterpart of ``minigrid_tpu/ops/fused_step.py``, whose Pallas kernel it
 replaces with ``csrc/fused_step.cu`` (a group of G lanes per env, the env's
 packed grid in shared memory, scalars in registers across the T steps; the
 launch geometry is :func:`launch_geometry`). On the card
-this is the production step of every env without step hooks
-(:func:`require_core_dynamics`): ``MiniGridEnv.step`` and the pooled
-auto-reset go through it. Its observe-only entry, :func:`fused_observe`,
-observes states as given: the resets that select a different state into
-each finished env (regenerated, per-env pool rows, the fresh buffer) step
-without a reset row, select in PyTorch, then observe through it.
+this is the transition of every env: those without step hooks
+(:func:`require_core_dynamics`) step and take the pooled broadcast row in
+one launch, and a hook env (:func:`has_step_hooks`) runs its hooks in
+PyTorch around the step entry without a reset row. Its observe-only entry,
+:func:`fused_observe`, observes states as given: the resets that select a
+different state into each finished env (regenerated, per-env pool rows, the
+fresh buffer, a hook env's broadcast row) step without a reset row, select
+in PyTorch, then observe through it.
 
 Routing is by the device of the tensors: CPU tensors take
 :func:`fused_rollout_reference` (the port's ``step_core`` + ``gen_obs``),
@@ -60,16 +62,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 
+STEP_HOOKS = ("_transform_action", "_pre_step", "_post_step")
+
+
+def has_step_hooks(env) -> bool:
+    """Whether ``env``'s class overrides one of :data:`STEP_HOOKS`: its
+    steps then run the hook path around the fused step
+    (``envs/base.py::hooked_step``) instead of the broadcast reset-row
+    entry."""
+    from minigrid_tpu_torch.envs.base import MiniGridEnv
+
+    return any(getattr(type(env), name) is not getattr(MiniGridEnv, name)
+               for name in STEP_HOOKS)
+
+
 def require_core_dynamics(env) -> None:
-    """Raise unless ``env`` uses the unmodified core transition.
+    """Raise unless ``env`` uses the unmodified core transition: the guard
+    of the kernel's direct entry with a broadcast reset row.
 
     The fused step implements only ``step_core``: an env that overrides
     ``step_state``/``_pre_step``/``_post_step``/``_transform_action`` would
     get wrong dynamics through it."""
     from minigrid_tpu_torch.envs.base import MiniGridEnv
 
-    for name in ("step_state", "_pre_step", "_post_step",
-                 "_transform_action"):
+    for name in ("step_state",) + STEP_HOOKS:
         if getattr(type(env), name) is not getattr(MiniGridEnv, name):
             raise NotImplementedError(
                 f"{type(env).__name__} overrides {name}; the fused step "
@@ -262,11 +278,22 @@ def launch_geometry(batch: int, width: int, height: int, view_size: int,
     """Launch geometry of the kernel: G lanes per env (``group_lanes``, or
     :func:`pick_group_lanes`), ``MAX_THREADS // G`` envs per block, halved
     while the block's shared memory exceeds the opt-in limit (a block keeps
-    at least one full warp). Raises ``ValueError`` for a view size, G or
-    grid the kernel does not take."""
+    at least one full warp). When G is picked and even one warp of envs
+    does not fit (a 25x25 grid at a view of 21 or more with G=1), the next
+    wider G is taken. Raises ``ValueError`` for a view size, G or grid the
+    kernel does not take."""
     check_view_size(view_size)
-    g = pick_group_lanes(batch, sm_count) if group_lanes is None \
-        else group_lanes
+    if group_lanes is not None:
+        return _geometry(batch, width, height, view_size, group_lanes)
+    first = GROUP_LANES.index(pick_group_lanes(batch, sm_count))
+    for g in GROUP_LANES[first:]:
+        if shared_memory_bytes(width * height, view_size,
+                               max(1, 32 // g)) <= SMEM_LIMIT:
+            return _geometry(batch, width, height, view_size, g)
+    return _geometry(batch, width, height, view_size, GROUP_LANES[-1])
+
+
+def _geometry(batch, width, height, view_size, g) -> LaunchGeometry:
     if g not in GROUP_LANES:
         raise ValueError(f"group_lanes must be one of {GROUP_LANES}, got {g}")
     nc = width * height
@@ -424,7 +451,9 @@ def fused_rollout(params: EnvParams, states: EnvState, actions: torch.Tensor,
     each step before any reset.
 
     CPU tensors run :func:`fused_rollout_reference`; CUDA tensors run the
-    kernel. Validate the source env with :func:`require_core_dynamics`.
+    kernel. It computes the core transition only: a reset row needs an env
+    that passes :func:`require_core_dynamics`, and a hook env's steps go
+    through ``envs/base.py::hooked_step``.
     """
     if (reset_grid is None) != (reset_scal is None):
         raise ValueError("reset_grid and reset_scal go together")

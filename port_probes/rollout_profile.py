@@ -16,7 +16,9 @@ every group width G, at B=4096, 16384 and 65536, T=1 with a reset row and
 T=128, beside the G that ``launch_geometry`` picks. ``--train-only``
 profiles only the train step: one step of DoorKey-8x8 at B=4096, T=128,
 bf16 hidden=256, ``PPOConfig()`` per reset mode, with its host time, device
-kernels, device busy share and top kernels. Needs a CUDA device.
+kernels, device busy share and top kernels; ``--families`` adds the train
+steps of ``chip_smoke.FAMILY_TRAIN`` (MultiRoom-N6 pooled,
+Dynamic-Obstacles-16x16 pooled, Fetch-8x8-N3 fresh). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -113,8 +115,9 @@ def profile_rollout(env, g, pool, B: int, T: int, card: str) -> None:
               f"{batch * 128 / ms * 1e3:.3e} env-steps/s ({card})")
 
 
-def profile_train_steps(card: str) -> None:
-    """One full-width train step per reset mode under the profiler."""
+def profile_train_steps(card: str, cases) -> None:
+    """One full-width train step per (env id, reset mode, fresh buffer
+    rows) case under the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -124,14 +127,15 @@ def profile_train_steps(card: str) -> None:
                                                make_train_step)
 
     cfg = PPOConfig()
-    for mode in ("pooled", "fresh", "regen"):
-        env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
+    for env_id, mode, fresh_buffer in cases:
+        env = mt.make(env_id, device="cuda").packed()
         g = env.generator(0)
         model = init_params(ActorCritic(device="cuda"), g)
         opt = make_optimizer(model, cfg)
         pool = env.make_pool(g, 1024) if mode == "pooled" else None
         obs, st = env.reset_staggered(g, cfg.num_envs)
-        step = make_train_step(env, model, cfg, opt, resets=mode)
+        step = make_train_step(env, model, cfg, opt, resets=mode,
+                               fresh_buffer=fresh_buffer)
         st, obs, _ = step(st, obs, g, pool)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -143,7 +147,7 @@ def profile_train_steps(card: str) -> None:
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_us = sum(e.time_range.elapsed_us() for e in dev)
-        print(f"train step, {mode} resets, B={cfg.num_envs} "
+        print(f"train step, {env_id} {mode} resets, B={cfg.num_envs} "
               f"T={cfg.rollout_len} under the profiler: {wall * 1e3:.1f} ms "
               f"host, {len(dev)} device kernels, device busy "
               f"{busy_share(dev, wall * 1e6):.3f} of wall "
@@ -193,6 +197,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--train-only", action="store_true")
+    ap.add_argument("--families", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -204,7 +209,12 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
-    profile_train_steps(card)
+    cases = [("MiniGrid-DoorKey-8x8-v0", mode, None)
+             for mode in ("pooled", "fresh", "regen")]
+    if args.families:
+        from chip_smoke import FAMILY_TRAIN
+        cases += FAMILY_TRAIN
+    profile_train_steps(card, cases)
     if args.train_only:
         return 0
     env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()

@@ -215,14 +215,23 @@ def test_shared_memory_and_build_flags():
 def test_launch_geometry_fits_every_env_and_view(group_lanes):
     """Every registered env at every odd view size 3..31: a valid block
     (whole warps, at most MAX_THREADS threads) under the shared-memory
-    limit, covering the batch."""
+    limit, covering the batch. A G given explicitly raises exactly where
+    one warp of its envs exceeds the limit (G=1 on MultiRoom's 25x25 at a
+    view of 21 or more); the picked G always fits."""
     sizes = set()
     for env_id in minigrid_tpu_torch.registered_ids():
         p = minigrid_tpu_torch.make(env_id, device=CPU).params
         sizes.add((p.width, p.height))
+    assert (25, 25) in sizes and (16, 8) in sizes
     for w, h in sorted(sizes):
         for v in range(3, 32, 2):
             for batch in (1, 1001, 4096, 65536):
+                if group_lanes is not None and F.shared_memory_bytes(
+                        w * h, v, 32 // group_lanes) > F.SMEM_LIMIT:
+                    assert (w, h, group_lanes, v >= 21) == (25, 25, 1, True)
+                    with pytest.raises(ValueError, match="shared memory"):
+                        F.launch_geometry(batch, w, h, v, 132, group_lanes)
+                    continue
                 geo = F.launch_geometry(batch, w, h, v, 132, group_lanes)
                 assert geo.shared_memory_bytes <= F.SMEM_LIMIT
                 assert geo.shared_memory_bytes == F.shared_memory_bytes(

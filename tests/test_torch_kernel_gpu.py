@@ -40,9 +40,28 @@ def cuda_device():
     ("MiniGrid-DoorKey-8x8-v0", "uniform", 4000, False),
     ("MiniGrid-DoorKey-8x8-v0", "uniform", 4096, True),
     ("MiniGrid-DoorKey-16x16-v0", "interact", 1000, True),
+    # 25x25 (32 envs a block at G=8), 16x8 (W != H), see-through walls
+    ("MiniGrid-MultiRoom-N6-v0", "interact", 4096, False),
+    ("MiniGrid-MultiRoom-N6-v0", "interact", 1000, True),
+    ("MiniGrid-RedBlueDoors-8x8-v0", "interact", 4096, True),
+    ("MiniGrid-Fetch-8x8-N3-v0", "interact", 4096, False),
+    ("MiniGrid-Dynamic-Obstacles-16x16-v0", "uniform", 1000, True),
+    ("MiniGrid-LavaCrossingS11N5-v0", "uniform", 4096, True),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, env_id, kind, B, reset):
     _check_case(cuda_device, env_id, kind, B, reset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view,group_lanes", [(21, None), (31, 2), (7, 1)])
+def test_kernel_25x25_view_sizes_on_card(cuda_device, view, group_lanes):
+    """MultiRoom's 25x25 where one warp of G=1 envs does not fit the
+    shared memory (a view of 21 or more: the picked G widens) and where
+    it does."""
+    env = minigrid_tpu_torch.make("MiniGrid-MultiRoom-N6-v0",
+                                  device=cuda_device).packed()
+    env = env.replace_params(view_size=view)
+    _check_case(cuda_device, env, "interact", 1001, True, group_lanes)
 
 
 @pytest.mark.gpu
@@ -92,7 +111,7 @@ def _check_case(device, env, kind, B, reset, group_lanes=None, T=32):
     assert KERNEL.launches == launches + 1
     want = fused_rollout_reference(env.params, st, actions, False, rg, rs)
     for k, v in want[0].tensors().items():
-        assert torch.equal(getattr(got[0], k), v), k
+        assert torch.equal(got[0].tensors()[k], v), k
     for name, a, b in zip(("obs", "reward", "term", "trunc"), got[1:],
                           want[1:]):
         assert torch.equal(a, b), name
@@ -121,6 +140,68 @@ def test_observe_entry_matches_plain_on_card(cuda_device, view, B,
     assert KERNEL.observe_launches == launches + 1
     assert torch.equal(got, fused_observe_reference(env.params, st))
     assert (st.carrying[:, 0] != 1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id", ["MiniGrid-MultiRoom-N6-v0",
+                                    "MiniGrid-RedBlueDoors-8x8-v0",
+                                    "MiniGrid-GoToDoor-8x8-v0"])
+def test_observe_entry_other_shapes_on_card(cuda_device, env_id):
+    env = minigrid_tpu_torch.make(env_id, device=cuda_device).packed()
+    _, st = env.reset(env.generator(3), 2048)
+    rng = np.random.default_rng(4)
+    actions = torch.from_numpy(INTERACT[rng.integers(0, 8, (16, 2048))]).to(
+        cuda_device)
+    st = fused_rollout(env.params, st, actions)[0]
+    assert torch.equal(fused_observe(env.params, st),
+                       fused_observe_reference(env.params, st))
+
+
+HOOK_IDS = ["MiniGrid-MemoryS13Random-v0", "MiniGrid-RedBlueDoors-8x8-v0",
+            "MiniGrid-GoToObject-8x8-N2-v0", "MiniGrid-Fetch-8x8-N3-v0",
+            "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-PutNear-8x8-N3-v0",
+            "MiniGrid-Dynamic-Obstacles-16x16-v0"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id", HOOK_IDS)
+def test_hook_step_on_card_matches_cpu(cuda_device, env_id):
+    """A hook family's step and pooled auto-reset on the card (hooks in
+    PyTorch around the step entry; the row selected, then observed) equal
+    the same steps on the CPU, ``extra`` included, with one step launch a
+    step and one observe launch a pooled step."""
+    env = minigrid_tpu_torch.make(env_id, device=cuda_device).packed()
+    cpu = minigrid_tpu_torch.make(env_id, device="cpu").packed()
+    g = env.generator(5)
+    B, T = 512, 12
+    _, st = env.reset(g, B)
+    ms = env.params.max_steps
+    st = st.replace(step_count=(ms - 1 - torch.arange(B, device=cuda_device)
+                                % T).to(torch.int32))
+    st_c = st.map(lambda x: x.cpu())
+    pool = env.make_pool(g, 16)
+    counts = KERNEL.launches, KERNEL.observe_launches
+    for t in range(T):
+        keys = random_keys(g, (B, 2), cuda_device)
+        a = torch.randint(0, 7, (B,), generator=g, device=cuda_device,
+                          dtype=torch.int32)
+        if t % 2 == 0:
+            out = env.step(keys, st, a)
+            ref = cpu.step(keys.cpu(), st_c, a.cpu())
+        else:
+            row = pool.rows(t % 16)
+            out = env.step_autoreset_presampled(keys, st, a, row)
+            ref = cpu.step_autoreset_presampled(keys.cpu(), st_c, a.cpu(),
+                                                row.to("cpu"))
+        assert torch.equal(out[0]["packed"].cpu(), ref[0]["packed"])
+        for k, v in ref[1].tensors().items():
+            assert torch.equal(out[1].tensors()[k].cpu(), v), (t, k)
+        for x, y in zip(out[2:5], ref[2:5]):
+            assert torch.equal(x.cpu(), y)
+        st, st_c = out[1], ref[1]
+    torch.cuda.synchronize()
+    assert (KERNEL.launches - counts[0],
+            KERNEL.observe_launches - counts[1]) == (T, T // 2)
 
 
 @pytest.mark.gpu

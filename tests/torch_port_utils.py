@@ -6,6 +6,8 @@ exported with ``jax.tree.map(np.asarray, ...)`` and rebuilt on the CPU by
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -56,13 +58,122 @@ def assert_state_equal(port, ref, fields=("grid", "agent_pos", "agent_dir",
                                           "carrying", "step_count",
                                           "terminated", "truncated"),
                        msg=""):
-    """Port EnvState == JAX EnvState on ``fields``, bit for bit."""
+    """Port EnvState == JAX EnvState on ``fields``, bit for bit, dtypes
+    included; the field "extra" compares every entry."""
     for k in fields:
+        if k == "extra":
+            want_x, got_x = ref.extra, port.extra
+            assert (want_x is None) == (got_x is None), f"{msg} extra"
+            assert set(got_x or {}) == set(want_x or {}), f"{msg} extra"
+            for name, v in (want_x or {}).items():
+                want, got = np.asarray(v), got_x[name].numpy()
+                assert got.dtype == want.dtype, f"{msg} extra {name}"
+                np.testing.assert_array_equal(got, want,
+                                              err_msg=f"{msg} extra {name}")
+            continue
         want = np.asarray(getattr(ref, k))
         got = getattr(port, k).numpy()
         if k == "rng":
             want = want.view(np.int32)
         np.testing.assert_array_equal(got, want, err_msg=f"{msg} {k}")
+
+
+ALL_FIELDS = ("grid", "agent_pos", "agent_dir", "carrying", "step_count",
+              "terminated", "truncated", "mission", "rng", "extra")
+
+
+def jax_layouts(env_id: str, n: int, seed: int = 0):
+    """(packed JAX env, ``n`` layouts from ``jax.vmap(env._gen_grid)``)."""
+    env = minigrid_tpu.make(env_id).packed()
+    states = jax.jit(jax.vmap(env._gen_grid))(
+        jax.random.split(jax.random.PRNGKey(seed), n))
+    return env, states
+
+
+@functools.lru_cache(maxsize=None)
+def jax_core_step(params):
+    """The core transition and packed observation of the JAX package,
+    vmapped and jitted (once per params): ``(states, actions) -> (obs,
+    states, reward, terminated, truncated)``, what its fused step computes
+    per step."""
+    from minigrid_tpu.core.obs import gen_obs
+    from minigrid_tpu.core.step import step_core
+
+    def one(s, a):
+        ns, r, te = step_core(params, s, a)
+        ns = ns.replace(terminated=te)
+        return gen_obs(params, ns)["packed"], ns, r, te, ns.truncated
+
+    return jax.jit(jax.vmap(one))
+
+
+def check_fused_step_against_jax(env_id, jenv, jst, kind, T=16, B=128):
+    """The port's plain fused step (T steps of the first B exported
+    states) bit-exact against T steps of the JAX core transition."""
+    import torch
+
+    from minigrid_tpu_torch.ops.fused_step import fused_rollout
+
+    jst = jax.tree.map(lambda x: x[:B], jst)
+    actions = action_stream(kind, T, B)
+    p_new, p_obs, p_rew, p_te, p_tr = fused_rollout(
+        jenv.params, export(jst), torch.from_numpy(actions))
+    step = jax_core_step(jenv.params)
+    for t in range(T):
+        o, jst, r, te, tr = step(jst, jax.numpy.asarray(actions[t]))
+        msg = f"{env_id} {kind} step {t}"
+        np.testing.assert_array_equal(p_obs[t].numpy(), np.asarray(o),
+                                      err_msg=msg)
+        np.testing.assert_array_equal(p_rew[t].numpy(), np.asarray(r),
+                                      err_msg=msg)
+        np.testing.assert_array_equal(p_te[t].numpy(), np.asarray(te),
+                                      err_msg=msg)
+        np.testing.assert_array_equal(p_tr[t].numpy(), np.asarray(tr),
+                                      err_msg=msg)
+    assert_state_equal(p_new, jst, ALL_FIELDS, msg=env_id)
+
+
+def categories(*samples):
+    """Each sample's rows (e.g. mission token rows) as category ids common
+    to all samples."""
+    allrows = np.concatenate([np.asarray(s).reshape(len(s), -1)
+                              for s in samples])
+    _, inv = np.unique(allrows, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    out, i = [], 0
+    for s in samples:
+        out.append(inv[i:i + len(s)])
+        i += len(s)
+    return out
+
+
+def binned(a, b, k: int = 8):
+    """Two samples of a numeric feature cut into ``k`` bins at the
+    quantiles of both together (so that a chi-square sees few empty
+    cells)."""
+    a, b = np.asarray(a), np.asarray(b)
+    edges = np.unique(np.quantile(np.concatenate([a, b]),
+                                  np.linspace(0, 1, k + 1)[1:-1]))
+    return np.searchsorted(edges, a, "right"), np.searchsorted(edges, b,
+                                                                "right")
+
+
+def reachable(grid, start, passable) -> np.ndarray:
+    """(W, H) cells reachable from ``start`` through 4-neighbours whose
+    object type is in ``passable`` (numpy BFS on one (W, H, 5) grid)."""
+    W, H = grid.shape[:2]
+    ok = np.isin(grid[..., 0], list(passable))
+    seen = np.zeros((W, H), bool)
+    stack = [tuple(int(v) for v in start)]
+    seen[stack[0]] = True
+    while stack:
+        x, y = stack.pop()
+        for dx, dy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+            u, v = x + dx, y + dy
+            if 0 <= u < W and 0 <= v < H and not seen[u, v] and ok[u, v]:
+                seen[u, v] = True
+                stack.append((u, v))
+    return seen
 
 
 def jax_train_step_closures(train_step) -> dict:
