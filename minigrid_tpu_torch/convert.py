@@ -6,6 +6,7 @@ Imports no JAX: callers hand over numpy arrays (e.g.
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -69,17 +70,41 @@ def _field(src, name):
 
 
 def _extra(src):
-    """The ``extra`` of an exported state: None, or a mapping of arrays."""
+    """The ``extra`` of an exported state: None, or a (nested) mapping of
+    arrays."""
     if isinstance(src, Mapping):
         return src.get("extra")
     return getattr(src, "extra", None)
 
 
+def flatten_extra(extra, prefix: str = "") -> dict:
+    """A nested JAX ``extra`` (mappings and dataclasses, e.g. Flax struct
+    dataclasses, of numpy-convertible arrays) as one flat dict under dotted
+    keys, the port's layout: ``{"instr": InstrState(descs=Descs(...)),
+    "max_steps": m}`` -> ``{"instr.descs.mask_objs": ..., ...,
+    "max_steps": m}``. uint32 arrays (the packed masks) keep their bits as
+    int32."""
+    if isinstance(extra, Mapping):
+        items = extra.items()
+    elif dataclasses.is_dataclass(extra):
+        items = ((f.name, getattr(extra, f.name))
+                 for f in dataclasses.fields(extra))
+    else:
+        a = np.array(extra)  # a writable copy
+        return {prefix[:-1]: a.view(np.int32) if a.dtype == np.uint32 else a}
+    out = {}
+    for k, v in items:
+        out.update(flatten_extra(v, f"{prefix}{k}."))
+    return out
+
+
 def env_state_from_numpy(src, device=None) -> EnvState:
     """A batched EnvState exported from JAX (an object or mapping with the
     EnvState fields as numpy-convertible arrays, batch-leading, and
-    ``extra`` a mapping of such arrays or None). JAX keys (uint32) keep
-    their bit pattern as int32; ``extra`` keeps its dtypes."""
+    ``extra`` None or a mapping of such arrays, nested mappings and
+    dataclasses flattened by :func:`flatten_extra`). JAX keys (uint32) keep
+    their bit pattern as int32, as do uint32 arrays of ``extra``; its other
+    arrays keep their dtypes."""
     dev = resolve_device(device)
 
     def t(name, dtype):
@@ -89,8 +114,8 @@ def env_state_from_numpy(src, device=None) -> EnvState:
     rng = np.array(_field(src, "rng"))  # a writable copy
     extra = _extra(src)
     if extra is not None:
-        extra = {k: torch.as_tensor(np.array(v), device=dev)
-                 for k, v in extra.items()}
+        extra = {k: torch.as_tensor(v, device=dev)
+                 for k, v in flatten_extra(extra).items()}
     return EnvState(
         grid=t("grid", np.uint8),
         agent_pos=t("agent_pos", np.int32),
@@ -112,6 +137,7 @@ def layout_pool_from_entries(entries, device=None) -> LayoutPool:
                for n in STATE_FIELDS}
     extras = [_extra(e) for e in entries]
     if extras[0] is not None:
-        stacked["extra"] = {k: np.stack([np.asarray(x[k]) for x in extras])
-                            for k in extras[0]}
+        flat = [flatten_extra(x) for x in extras]
+        stacked["extra"] = {k: np.stack([x[k] for x in flat])
+                            for k in flat[0]}
     return pool_from_states(env_state_from_numpy(stacked, device))

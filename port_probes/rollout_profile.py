@@ -18,7 +18,10 @@ profiles only the train step: one step of DoorKey-8x8 at B=4096, T=128,
 bf16 hidden=256, ``PPOConfig()`` per reset mode, with its host time, device
 kernels, device busy share and top kernels; ``--families`` adds the train
 steps of ``chip_smoke.FAMILY_TRAIN`` (MultiRoom-N6 pooled,
-Dynamic-Obstacles-16x16 pooled, Fetch-8x8-N3 fresh). Needs a CUDA device.
+Dynamic-Obstacles-16x16 pooled, Fetch-8x8-N3 fresh, BabyAI-GoToObj and
+BabyAI-PutNextLocal fresh, KeyCorridorS6R3 pooled; a BabyAI batch staggered
+and its fresh buffer sized as ``chip_smoke.stagger_budget`` does). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -122,6 +125,7 @@ def profile_train_steps(card: str, cases) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     import minigrid_tpu_torch as mt
+    from chip_smoke import stagger_budget
     from minigrid_tpu_torch.models.actor_critic import ActorCritic, init_params
     from minigrid_tpu_torch.models.ppo import (PPOConfig, make_optimizer,
                                                make_train_step)
@@ -134,6 +138,7 @@ def profile_train_steps(card: str, cases) -> None:
         opt = make_optimizer(model, cfg)
         pool = env.make_pool(g, 1024) if mode == "pooled" else None
         obs, st = env.reset_staggered(g, cfg.num_envs)
+        st, fresh_buffer = stagger_budget(env, st, g, fresh_buffer)
         step = make_train_step(env, model, cfg, opt, resets=mode,
                                fresh_buffer=fresh_buffer)
         st, obs, _ = step(st, obs, g, pool)

@@ -216,19 +216,21 @@ def test_launch_geometry_fits_every_env_and_view(group_lanes):
     """Every registered env at every odd view size 3..31: a valid block
     (whole warps, at most MAX_THREADS threads) under the shared-memory
     limit, covering the batch. A G given explicitly raises exactly where
-    one warp of its envs exceeds the limit (G=1 on MultiRoom's 25x25 at a
-    view of 21 or more); the picked G always fits."""
+    one warp of its envs exceeds the limit (G=1 at views of 21 or more on
+    the largest grids: BabyAI's 20x20 room and 22x22 mazes, MultiRoom's
+    25x25); the picked G always fits."""
     sizes = set()
     for env_id in minigrid_tpu_torch.registered_ids():
         p = minigrid_tpu_torch.make(env_id, device=CPU).params
         sizes.add((p.width, p.height))
-    assert (25, 25) in sizes and (16, 8) in sizes
+    assert {(25, 25), (22, 22), (16, 8)} <= sizes
+    over = set()
     for w, h in sorted(sizes):
         for v in range(3, 32, 2):
             for batch in (1, 1001, 4096, 65536):
                 if group_lanes is not None and F.shared_memory_bytes(
                         w * h, v, 32 // group_lanes) > F.SMEM_LIMIT:
-                    assert (w, h, group_lanes, v >= 21) == (25, 25, 1, True)
+                    over.add((w, h, v))
                     with pytest.raises(ValueError, match="shared memory"):
                         F.launch_geometry(batch, w, h, v, 132, group_lanes)
                     continue
@@ -241,6 +243,11 @@ def test_launch_geometry_fits_every_env_and_view(group_lanes):
                 assert geo.threads <= F.MAX_THREADS
                 assert geo.blocks * geo.envs_per_block >= batch
                 assert (geo.blocks - 1) * geo.envs_per_block < batch
+    want = set()
+    if group_lanes == 1:
+        want = {(20, 20, 31), *((22, 22, v) for v in (27, 29, 31)),
+                *((25, 25, v) for v in range(21, 32, 2))}
+    assert over == want
 
 
 def test_launch_geometry_fills_the_card():

@@ -660,10 +660,15 @@ def test_pool_round_trip_with_extra():
 
 def test_step_hooks_route_every_family():
     hooked = {"DynamicObstaclesEnv", "FetchEnv", "GoToDoorEnv",
-              "GoToObjectEnv", "MemoryEnv", "PutNearEnv", "RedBlueDoorEnv"}
+              "GoToObjectEnv", "MemoryEnv", "PutNearEnv", "RedBlueDoorEnv",
+              # the RoomGrid families' success tests
+              "UnlockEnv", "UnlockPickupEnv", "BlockedUnlockPickupEnv",
+              "KeyCorridorEnv", "ObstructedMaze_1Dlhb", "ObstructedMaze_Full"}
     for env_id in minigrid_tpu_torch.registered_ids():
         env = minigrid_tpu_torch.make(env_id, device=CPU)
-        assert has_step_hooks(env) == (type(env).__name__ in hooked), env_id
+        # every BabyAI level: its verifier is a step hook
+        want = (type(env).__name__ in hooked or env_id.startswith("BabyAI-"))
+        assert has_step_hooks(env) == want, env_id
         if has_step_hooks(env):
             with pytest.raises(NotImplementedError, match="overrides"):
                 require_core_dynamics(env)

@@ -47,6 +47,11 @@ def cuda_device():
     ("MiniGrid-Fetch-8x8-N3-v0", "interact", 4096, False),
     ("MiniGrid-Dynamic-Obstacles-16x16-v0", "uniform", 1000, True),
     ("MiniGrid-LavaCrossingS11N5-v0", "uniform", 4096, True),
+    # BabyAI's 3x3 maze of 8-rooms (22x22) and ObstructedMaze-Full (16x16),
+    # the step entry without a row (their hook path)
+    ("BabyAI-BossLevel-v0", "uniform", 4096, False),
+    ("BabyAI-BossLevel-v0", "interact", 1001, False),
+    ("MiniGrid-ObstructedMaze-Full-v0", "interact", 4096, False),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, env_id, kind, B, reset):
     _check_case(cuda_device, env_id, kind, B, reset)
@@ -145,7 +150,9 @@ def test_observe_entry_matches_plain_on_card(cuda_device, view, B,
 @pytest.mark.gpu
 @pytest.mark.parametrize("env_id", ["MiniGrid-MultiRoom-N6-v0",
                                     "MiniGrid-RedBlueDoors-8x8-v0",
-                                    "MiniGrid-GoToDoor-8x8-v0"])
+                                    "MiniGrid-GoToDoor-8x8-v0",
+                                    "BabyAI-BossLevel-v0",
+                                    "MiniGrid-ObstructedMaze-Full-v0"])
 def test_observe_entry_other_shapes_on_card(cuda_device, env_id):
     env = minigrid_tpu_torch.make(env_id, device=cuda_device).packed()
     _, st = env.reset(env.generator(3), 2048)
@@ -157,25 +164,32 @@ def test_observe_entry_other_shapes_on_card(cuda_device, env_id):
                        fused_observe_reference(env.params, st))
 
 
+# BabyAI levels: every leaf and root kind, the 22x22 maze
+LEVEL_IDS = ["BabyAI-GoToObj-v0", "BabyAI-PutNextLocal-v0",
+             "BabyAI-OpenDoorsOrderN4-v0", "BabyAI-SynthSeq-v0",
+             "BabyAI-BossLevel-v0"]
 HOOK_IDS = ["MiniGrid-MemoryS13Random-v0", "MiniGrid-RedBlueDoors-8x8-v0",
             "MiniGrid-GoToObject-8x8-N2-v0", "MiniGrid-Fetch-8x8-N3-v0",
             "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-PutNear-8x8-N3-v0",
-            "MiniGrid-Dynamic-Obstacles-16x16-v0"]
+            "MiniGrid-Dynamic-Obstacles-16x16-v0", "MiniGrid-Unlock-v0",
+            "MiniGrid-KeyCorridorS3R3-v0", "MiniGrid-ObstructedMaze-2Dlh-v0"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("env_id", HOOK_IDS)
+@pytest.mark.parametrize("env_id", HOOK_IDS + LEVEL_IDS)
 def test_hook_step_on_card_matches_cpu(cuda_device, env_id):
     """A hook family's step and pooled auto-reset on the card (hooks in
     PyTorch around the step entry; the row selected, then observed) equal
     the same steps on the CPU, ``extra`` included, with one step launch a
-    step and one observe launch a pooled step."""
+    step and one observe launch a pooled step; a BabyAI level's verifier
+    replaces the state, so its steps are observed too."""
     env = minigrid_tpu_torch.make(env_id, device=cuda_device).packed()
     cpu = minigrid_tpu_torch.make(env_id, device="cpu").packed()
     g = env.generator(5)
     B, T = 512, 12
     _, st = env.reset(g, B)
-    ms = env.params.max_steps
+    level = env_id in LEVEL_IDS
+    ms = st.extra["max_steps"] if level else env.params.max_steps
     st = st.replace(step_count=(ms - 1 - torch.arange(B, device=cuda_device)
                                 % T).to(torch.int32))
     st_c = st.map(lambda x: x.cpu())
@@ -201,7 +215,8 @@ def test_hook_step_on_card_matches_cpu(cuda_device, env_id):
         st, st_c = out[1], ref[1]
     torch.cuda.synchronize()
     assert (KERNEL.launches - counts[0],
-            KERNEL.observe_launches - counts[1]) == (T, T // 2)
+            KERNEL.observe_launches - counts[1]) == (T, T if level
+                                                     else T // 2)
 
 
 @pytest.mark.gpu

@@ -1,8 +1,9 @@
 """The port's registry (minigrid_tpu_torch/register_envs.py) against the
-JAX package's: the ID set of the families the port covers, each ID's
-constructor attributes, keyword overrides, and every ID reset and stepped
-on the CPU through each auto-reset mode (the per-ID params, class names
-and missions are in tests/test_torch_envs.py::test_registry_matches_jax).
+JAX package's: the ID set (every JAX ID but the 6 WaveFunctionCollapse
+ones), each ID's constructor attributes, keyword overrides, and every ID
+reset and stepped on the CPU through each auto-reset mode (the per-ID
+params, class names and missions are in
+tests/test_torch_envs.py::test_registry_matches_jax).
 """
 
 from __future__ import annotations
@@ -22,31 +23,29 @@ from tests.torch_port_utils import CPU
 
 pytestmark = pytest.mark.usefixtures("share_cpu")
 
-PORTED_CLASSES = {
-    "CrossingEnv", "DistShiftEnv", "DoorKeyEnv", "DynamicObstaclesEnv",
-    "EmptyEnv", "FetchEnv", "FourRoomsEnv", "GoToDoorEnv", "GoToObjectEnv",
-    "LavaGapEnv", "LockedRoomEnv", "MemoryEnv", "MultiRoomEnv",
-    "PlaygroundEnv", "PutNearEnv", "RedBlueDoorEnv"}
-# constructor attributes the generators and hooks read
-ATTRS = ("num_objs", "n_obstacles", "num_crossings", "obstacle_type",
-         "random_length", "min_rooms", "max_rooms", "max_room_size", "size",
-         "strip2_row", "agent_start_pos", "agent_start_dir")
+NOT_PORTED = "MiniGrid-WFC-"  # the WaveFunctionCollapse IDs
+# constructor attributes the generators and hooks read: the JAX env's public
+# attributes of these types
+SIMPLE = (int, str, bool, float, tuple, type(None))
 
 
 def test_ported_ids_are_the_jax_ids_of_these_families():
     want = sorted(i for i in minigrid_tpu.registered_ids()
-                  if i.startswith("MiniGrid-")
-                  and type(minigrid_tpu.make(i)).__name__ in PORTED_CLASSES)
+                  if not i.startswith(NOT_PORTED))
     assert minigrid_tpu_torch.registered_ids() == want
-    assert len(want) == 54
+    assert len(want) == 172
+    assert sum(i.startswith("MiniGrid-") for i in want) == 76
+    assert sum(i.startswith("BabyAI-") for i in want) == 96
 
 
 @pytest.mark.parametrize("env_id", minigrid_tpu_torch.registered_ids())
 def test_id_attributes_match_jax(env_id):
     p = minigrid_tpu_torch.make(env_id, device=CPU)
     j = minigrid_tpu.make(env_id)
-    for a in ATTRS:
-        assert getattr(p, a, None) == getattr(j, a, None), (env_id, a)
+    attrs = {k: v for k, v in vars(j).items()
+             if isinstance(v, SIMPLE) and not k.startswith("_")}
+    for a, v in attrs.items():
+        assert getattr(p, a, "missing") == v, (env_id, a)
 
 
 @pytest.mark.parametrize("env_id", minigrid_tpu_torch.registered_ids())
@@ -65,10 +64,17 @@ def test_id_resets_and_steps_on_cpu(env_id):
     pool = env.make_pool(g, 4)
     buffer = env.presample_fresh(g, 12)
     cursor = torch.zeros((), dtype=torch.int32)
-    last = torch.full((Bsz,), env.params.max_steps - 1, dtype=torch.int32)
+    budget = "max_steps" in extra_keys
+    if budget:
+        # a BabyAI level's budget is per episode; the staggered offset is
+        # drawn below params.max_steps = 2^30 (as in JAX), so draw it again
+        # below the episode's budget
+        st = st.replace(step_count=st.step_count % st.extra["max_steps"])
     for mode in ("pooled", "fresh", "regen"):
+        last = (st.extra["max_steps"] if budget else env.params.max_steps) - 1
         st = st.replace(step_count=torch.where(torch.arange(Bsz) % 2 == 0,
-                                               last, st.step_count))
+                                               last, st.step_count).to(
+                                                   torch.int32))
         keys = random_keys(g, (Bsz, 2), CPU)
         a = torch.randint(0, env.num_actions, (Bsz,), generator=g)
         if mode == "pooled":
@@ -85,7 +91,8 @@ def test_id_resets_and_steps_on_cpu(env_id):
         done = te | tr
         assert done[::2].all(), (env_id, mode)
         assert (new.step_count[done] == 0).all()
-        assert (new.carrying[done, 0] == C.EMPTY).all()
+        if not getattr(env, "start_carrying", False):
+            assert (new.carrying[done, 0] == C.EMPTY).all()
         lo, hi = env.reward_range
         assert ((r >= lo) & (r <= hi)).all()
         st = new
@@ -99,4 +106,4 @@ def test_make_passes_keyword_overrides():
                                   view_size=9)
     assert env.params.view_size == 9 and env.params.width == 25
     with pytest.raises(KeyError, match="Unknown environment"):
-        minigrid_tpu_torch.make("MiniGrid-Unlock-v0", device=CPU)
+        minigrid_tpu_torch.make("MiniGrid-WFC-MazeSimple-v0", device=CPU)

@@ -15,7 +15,7 @@ import torch
 import jax
 
 import minigrid_tpu
-from minigrid_tpu_torch.convert import env_state_from_numpy
+from minigrid_tpu_torch.convert import env_state_from_numpy, flatten_extra
 from minigrid_tpu_torch.core import constants as C
 
 CPU = "cpu"
@@ -59,11 +59,13 @@ def assert_state_equal(port, ref, fields=("grid", "agent_pos", "agent_dir",
                                           "terminated", "truncated"),
                        msg=""):
     """Port EnvState == JAX EnvState on ``fields``, bit for bit, dtypes
-    included; the field "extra" compares every entry."""
+    included; the field "extra" compares every entry (a nested JAX extra
+    flattened as ``convert.flatten_extra`` flattens it)."""
     for k in fields:
         if k == "extra":
             want_x, got_x = ref.extra, port.extra
             assert (want_x is None) == (got_x is None), f"{msg} extra"
+            want_x = None if want_x is None else flatten_extra(want_x)
             assert set(got_x or {}) == set(want_x or {}), f"{msg} extra"
             for name, v in (want_x or {}).items():
                 want, got = np.asarray(v), got_x[name].numpy()
@@ -235,3 +237,52 @@ def share_cpu():
     torch.set_num_threads(min(n, TEST_THREADS))
     yield
     torch.set_num_threads(n)
+
+
+def to_jax_state(port_state):
+    """The port's EnvState (CPU tensors) as a batched JAX EnvState: the
+    inverse of :func:`export`. Dotted ``extra`` keys nest again, BabyAI's
+    ``instr.*`` into the JAX ``InstrState``/``Descs`` (packed masks back to
+    uint32)."""
+    import jax.numpy as jnp
+    from minigrid_tpu.core.types import EnvState as JEnvState
+
+    def arr(t):
+        return jnp.asarray(t.numpy())
+
+    extra = None
+    if port_state.extra is not None:
+        flat = {k: v.numpy() for k, v in port_state.extra.items()}
+        extra = {k: jnp.asarray(v) for k, v in flat.items()
+                 if not k.startswith("instr.")}
+        if any(k.startswith("instr.") for k in flat):
+            extra["instr"] = to_jax_instr(flat)
+    return JEnvState(
+        grid=arr(port_state.grid), agent_pos=arr(port_state.agent_pos),
+        agent_dir=arr(port_state.agent_dir),
+        carrying=arr(port_state.carrying),
+        step_count=arr(port_state.step_count),
+        terminated=arr(port_state.terminated),
+        truncated=arr(port_state.truncated), mission=arr(port_state.mission),
+        rng=jnp.asarray(port_state.rng.numpy().view(np.uint32)), extra=extra)
+
+
+def to_jax_instr(flat):
+    """A JAX ``InstrState`` from the port's flat ``instr.*`` arrays (numpy,
+    or tensors via an ``InstrState.to_extra()`` dict)."""
+    import jax.numpy as jnp
+    from minigrid_tpu.envs.babyai.core import instrs as JI
+
+    flat = {k: np.asarray(v) for k, v in flat.items()}
+
+    def a(k):
+        v = flat["instr." + k]
+        return jnp.asarray(v.view(np.uint32) if k.startswith("descs.mask")
+                           else v)
+
+    descs = JI.Descs(**{f: a("descs." + f) for f in (
+        "type", "color", "loc", "count", "mask_objs", "mask_poss",
+        "carried")})
+    return JI.InstrState(descs=descs, **{f: a(f) for f in (
+        "root_kind", "a_is_and", "b_is_and", "kinds", "strict", "pre_empty",
+        "pre_move_carried", "last_match", "leaf_done", "a_done", "b_done")})
