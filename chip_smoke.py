@@ -27,7 +27,14 @@ Phases, each fatal on failure:
    RoomGrid families' and 5 BabyAI levels' ``step`` and pooled auto-reset
    (the hook path around the kernel; BabyAI's verifier is a step hook)
    stepped on the card and replayed on the CPU, bit-exact, ``extra``
-   included, and one level again with done actions;
+   included, and one level again with done actions; then frames
+   (``render.get_frame``: full with and without the view cone, and POV,
+   at tile 8 and 32) of DoorKey-8x8 B=4096 and BabyAI-BossLevel B=1024
+   states on the card against the CPU, and 18 wrapper stacks (the 15
+   wrappers, two transition wrappers stacked, an observation and a
+   stateful wrapper over NoDeath) stepped 32 times at B=256 with pooled
+   resets (ReseedWrapper: its own) on the card and replayed on the CPU,
+   bit-exact (NaN-equal), with their launches a step;
 4. the PPO train step at full width (B=4096, T=128, bf16 hidden=256,
    PPOConfig defaults) in each reset mode: pooled, fresh, regen, one
    warm-up step then three timed ones, with both entries' launch counts
@@ -38,8 +45,9 @@ Phases, each fatal on failure:
    verifier in the loop; staggered and buffered from the episode budgets as
    the JAX bench does) and KeyCorridorS6R3 pooled, with the device kernels
    per rollout step (profile) and the reset overflow;
-   then one rotate epoch of the f32 update on the card against the same
-   epoch on the CPU;
+   and ActionBonus(DoorKey-8x8) pooled, its visit counts growing by B x T
+   a train step; then one rotate epoch of the f32 update on the card
+   against the same epoch on the CPU;
 5. timings: the rollout, pure packed stepping, and the kernel's device
    time per launch (profiler) at T=1 and T=128 for B=4096 and at T=128 for
    B=65536, with the group width G chosen for each, and the observe
@@ -49,10 +57,16 @@ Phases, each fatal on failure:
    Fetch-8x8-N3 (see-through walls), BabyAI-BossLevel (22x22) and
    ObstructedMaze-Full (16x16), with each launch geometry; generation of a
    B=4096 batch of BossLevel and KeyCorridorS6R3 on the card (seconds, host
-   syncs, attempts, levels left invalid);
+   syncs, attempts, levels left invalid); frames of DoorKey-8x8 B=4096 at
+   tile 8 and 32 (device time of a call beside its byte bound); pooled
+   stepping at B=4096, T=128 of bare DoorKey-8x8, ImgObs(DoorKey-8x8) and
+   NoDeath(LavaCrossingS9N2) (env-steps/s, launches and device kernels a
+   step);
 6. learning on the card: the JAX package's guards (Empty-5x5 regen,
    pooled+packed and fresh, 30 updates; DoorKey-5x5, 120 updates at
-   B=256), then the greedy success rate of the DoorKey-5x5 policy.
+   B=256), then the greedy success rate of the DoorKey-5x5 policy; then
+   the two wrapped guards: ImgObs(Empty-5x5) with a policy over the packed
+   array and NoDeath(LavaGapS5), pooled, 30 updates.
 
 The line before the last is the card as ``nvidia-smi`` reports it; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -128,11 +142,55 @@ SHAPES = [("MultiRoom-N6 25x25", "MiniGrid-MultiRoom-N6-v0", True),
 # generation on the card at full width: seconds per batch, host syncs, the
 # most attempts (levels) or connect_all draws any env used, levels not valid
 GENERATION = ["BabyAI-BossLevel-v0", "MiniGrid-KeyCorridorS6R3-v0"]
+# the frames rendered: full with the view cone, full without, POV
+RENDER_VARIANTS = {"full": {}, "no highlight": {"highlight": False},
+                   "pov": {"agent_pov": True}}
+LAVA_ID = "MiniGrid-LavaCrossingS9N2-v0"  # JAX bench.py:411's NoDeath env
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # INT32 issue rate of an H100 SXM: 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x the 1.98 GHz boost clock that the
 # data sheet's 67 TFLOP/s of fp32 implies (67e12 / (132 SMs * 128 lanes * 2))
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def wrapper_cases() -> dict:
+    """The wrapper replays: name -> (env id, packed, the stack over an env,
+    the (step, observe) launches a step). A stateless observation stack
+    over a core env takes the step entry with the pooled row; a transition
+    or stateful one the step entry without a row and the observe entry
+    after the select; rendering and ViewSize add an observe launch; the
+    ReseedWrapper's exact reset observes its layouts."""
+    from minigrid_tpu_torch import wrappers as W
+
+    def nodeath(e):
+        return W.NoDeath(e, no_death_types=("lava",))
+
+    dk = ENV_ID
+    return {
+        "ImgObs": (dk, True, W.ImgObsWrapper, (1, 0)),
+        "OneHotPartialObs": (dk, False, W.OneHotPartialObsWrapper, (1, 0)),
+        "RGBImgObs": (dk, True, W.RGBImgObsWrapper, (1, 1)),
+        "RGBImgPartialObs": (dk, True, W.RGBImgPartialObsWrapper, (1, 1)),
+        "FullyObs": (dk, True, W.FullyObsWrapper, (1, 0)),
+        "DictObservationSpace": (dk, True, W.DictObservationSpaceWrapper,
+                                 (1, 0)),
+        "FlatObs": (dk, False, W.FlatObsWrapper, (1, 0)),
+        "ViewSize 9": (dk, False, lambda e: W.ViewSizeWrapper(e, 9), (1, 1)),
+        "SymbolicObs": (dk, True, W.SymbolicObsWrapper, (1, 0)),
+        "DirectionObs": (dk, True, W.DirectionObsWrapper, (1, 1)),
+        "ActionBonus": (dk, True, W.ActionBonus, (1, 1)),
+        "PositionBonus": (dk, True, W.PositionBonus, (1, 1)),
+        "StochasticAction": (dk, True, W.StochasticActionWrapper, (1, 1)),
+        "ReseedWrapper": (dk, True, lambda e: W.ReseedWrapper(
+            e, seeds=(0, 1, 2, 3, 4)), (1, 1)),
+        "NoDeath": (LAVA_ID, True, nodeath, (1, 1)),
+        "NoDeath(StochasticAction)": (LAVA_ID, True, lambda e: nodeath(
+            W.StochasticActionWrapper(e)), (1, 1)),
+        "ImgObs(NoDeath)": (LAVA_ID, True, lambda e: W.ImgObsWrapper(
+            nodeath(e)), (1, 1)),
+        "ActionBonus(NoDeath)": (LAVA_ID, True, lambda e: W.ActionBonus(
+            nodeath(e)), (1, 1)),
+    }
 
 
 def card_line() -> str:
@@ -185,6 +243,28 @@ def device_ms(fn, reps: int, kernel: str = "fused_step_kernel") -> float:
         print(f"  profiled {len(us)} launches of {kernel} of {reps}; again")
     raise AssertionError(f"profiled {len(us)} launches of {kernel}, "
                          f"expected {reps}")
+
+
+def device_ms_all(fn, reps: int):
+    """(mean device time in ms of everything one call of ``fn`` runs on the
+    card, device kernels and copies a call), from the profiler's CUDA
+    activity after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        raise AssertionError("the profiler recorded no device activity")
+    us = sum(e.time_range.elapsed_us() for e in ev)
+    return us / reps / 1e3, len(ev) / reps
 
 
 def nbytes(*tensors) -> int:
@@ -292,8 +372,8 @@ def clone_generator(g):
 
 
 def assert_same(name, got, want):
-    """Exact equality of two tensors, or of two dicts/EnvStates of them,
-    across devices."""
+    """Exact equality of two tensors, or of two dicts/states of them,
+    across devices (NaN equals NaN)."""
     import torch
 
     if hasattr(got, "tensors"):
@@ -302,7 +382,12 @@ def assert_same(name, got, want):
         for k in want:
             assert_same(f"{name} {k}", got[k], want[k])
         return
-    if not torch.equal(got.cpu(), want.cpu()):
+    got, want = got.cpu(), want.cpu()
+    same = torch.equal(got, want) or (
+        got.is_floating_point() and got.shape == want.shape
+        and got.dtype == want.dtype
+        and bool(((got == want) | (got.isnan() & want.isnan())).all()))
+    if not same:
         raise AssertionError(f"{name} differs between the card and the "
                              f"CPU replay")
 
@@ -348,7 +433,10 @@ def main() -> int:
                                               independent_candidates,
                                               presample_reset_states,
                                               random_keys)
+    from minigrid_tpu_torch import wrappers as WR
     from minigrid_tpu_torch.core import roomgrid as RG
+    from minigrid_tpu_torch.models.actor_critic import encode_packed
+    from minigrid_tpu_torch.render import get_atlas, get_frame
     from minigrid_tpu_torch.envs.babyai.core import level as level_module
     from minigrid_tpu_torch.envs.babyai.core.level import (USE_DONE_ACTIONS,
                                                            RoomGridLevel)
@@ -734,17 +822,125 @@ def main() -> int:
         replay_hooks(env_id)
     replay_hooks(ROOMGRID_HOOKS[-1], done_actions=True)
 
+    # --- 3b. rendering and the wrappers, card against CPU ---------------
+    # get_frame on states after interaction steps (every third agent given
+    # a key to carry): full frames with and without the view cone and POV
+    # frames at tile 8 and 32, on the card and on the CPU, bit-exact; the
+    # cone and the POV cells come from the observe entry (one launch each)
+    def replay_render(env_id, B, steps=8):
+        env = mt.make(env_id, device="cuda").packed()
+        g = env.generator(SEED + 11)
+        _, st = env.reset(g, B)
+        choice = torch.tensor([0, 1, 2, 2, 3, 4, 5, 5], device="cuda")
+        for _ in range(steps):
+            a = choice[torch.randint(0, 8, (B,), generator=g,
+                                     device="cuda")].to(torch.int32)
+            st = env.step(random_keys(g, (B, 2), "cuda"), st, a)[1]
+        key = torch.tensor([5, 4, 0, 0, 0], dtype=torch.uint8, device="cuda")
+        carry = (torch.arange(B, device="cuda") % 3 == 0)[:, None]
+        st = st.replace(carrying=torch.where(carry, key, st.carrying))
+        st_c = st.map(lambda x: x.cpu())
+        launched = {v: [] for v in RENDER_VARIANTS}  # per card call
+        for tile in (8, 32):
+            for variant, kw in RENDER_VARIANTS.items():
+                o0 = KERNEL.observe_launches
+                got = get_frame(env.params, st, tile_size=tile, **kw)
+                launched[variant].append(KERNEL.observe_launches - o0)
+                want = get_frame(env.params, st_c, tile_size=tile, **kw)
+                assert_same(f"{short(env_id)} {variant} frame tile {tile}",
+                            got, want)
+                del got, want
+        # the cone and the POV cells come from one observe launch a frame;
+        # a frame without the cone needs no observation
+        want_launched = {"full": [1, 1], "no highlight": [0, 0],
+                         "pov": [1, 1]}
+        if launched != want_launched:
+            raise AssertionError(f"{env_id} frames: observe launches per "
+                                 f"call {launched}, expected "
+                                 f"{want_launched}")
+        print(f"render, {short(env_id)} B={B} (W={env.params.width}, H="
+              f"{env.params.height}): full, no-highlight and POV frames at "
+              f"tile 8 and 32 on the card == CPU; observe launches per "
+              f"call (tile 8, 32) {launched}")
+        return st, {v: n[0] for v, n in launched.items()}
+
+    render_states, frame_launches = replay_render(ENV_ID, BATCH)
+    replay_render("BabyAI-BossLevel-v0", 1024, steps=4)
+
+    # each of the 15 wrappers and three stacks, B=256, 32 steps from
+    # staggered resets with pooled reset rows (ReseedWrapper: its exact
+    # auto-reset to its seeds' layouts), on the card and replayed on the
+    # CPU with the same keys, actions and rows: observations, rewards,
+    # flags and the WrappedState bit-exact (NaN-equal), and the launches
+    # of each entry per step as the path predicts
+    def replay_wrapper(name, env_id, packed, wrap, per_step, B=256, T=32):
+        env = mt.make(env_id, device="cuda")
+        cpu_env = mt.make(env_id, device="cpu")
+        if packed:
+            env, cpu_env = env.packed(), cpu_env.packed()
+        w, wc = wrap(env), wrap(cpu_env)
+        exact = isinstance(w, WR.ReseedWrapper)
+        if exact:  # the CPU replay resets to the card's layouts
+            wc.layouts = w.layouts.map(lambda x: x.cpu())
+        g = env.generator(SEED + 12)
+        _, st = w.reset(g, B)
+        e = WR._inner_env_state(st)
+        st = WR._replace_inner(st, e.replace(step_count=(
+            env.params.max_steps - 1 - torch.arange(B, device="cuda") % T
+        ).to(torch.int32)))
+        st_c = st.map(lambda x: x.cpu())
+        rows = (None if exact
+                else presample_reset_states(g, w.make_pool(g, 64), T))
+        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        n_done = 0
+        for t in range(T):
+            keys = random_keys(g, (B, 2), "cuda")
+            a = torch.randint(0, 7, (B,), generator=g, device="cuda",
+                              dtype=torch.int32)
+            if exact:
+                out = w.step_autoreset(keys, st, a, g)
+                ref = wc.step_autoreset(keys.cpu(), st_c, a.cpu(), None)
+            else:
+                out = w.step_autoreset_presampled(keys, st, a, rows.rows(t))
+                ref = wc.step_autoreset_presampled(
+                    keys.cpu(), st_c, a.cpu(), rows.rows(t).to("cpu"))
+            for part, x, y in zip(("obs", "state", "reward", "terminated",
+                                   "truncated"), out[:5], ref[:5]):
+                assert_same(f"{name} step {t} {part}", x, y)
+            st, st_c = out[1], ref[1]
+            n_done += int((out[3] | out[4]).sum())
+        launched = (KERNEL.launches - l0, KERNEL.observe_launches - o0)
+        want = (per_step[0] * T, per_step[1] * T)
+        if launched != want:
+            raise AssertionError(f"{name}: (step, observe) launches "
+                                 f"{launched}, expected {want}")
+        if n_done < B:
+            raise AssertionError(f"{name}: only {n_done} episodes ended")
+        print(f"wrapper {name} (B={B}, T={T}, "
+              f"{'exact' if exact else 'pooled'} resets): {n_done} episodes "
+              f"ended; {per_step[0]} step + {per_step[1]} observe launches a "
+              f"step; card == CPU replay")
+        return {"launches_per_step": (launched[0] // T, launched[1] // T),
+                "episodes_ended": n_done}
+
+    wrappers = {name: replay_wrapper(name, *case)
+                for name, case in wrapper_cases().items()}
+
     # --- 4. the train step at full width --------------------------------
     cfg = PPOConfig()  # B=4096, T=128, 1 epoch of 4 rotate minibatches
     assert (cfg.num_envs, cfg.rollout_len) == (BATCH, ROLLOUT_LEN)
 
-    def train_phase(env_id, mode, fresh_buffer=None):
+    def train_phase(env_id, mode, fresh_buffer=None, wrap=None):
         """One warm-up train step, then three timed ones (one for
         :data:`ONE_TIMED_STEP`) with both entries' launch counts set to 0
         before and read after; then one more rollout and update timed
         apart, and one rollout under the profiler for the device kernels
-        per step. A BabyAI level is staggered by :func:`stagger_budget`."""
+        per step. A BabyAI level is staggered by :func:`stagger_budget`.
+        ``wrap``: a stateful wrapper over the env, whose visit counts must
+        grow by B x T a train step."""
         tenv = mt.make(env_id, device="cuda").packed()
+        if wrap is not None:
+            tenv = wrap(tenv)
         tg = tenv.generator(SEED + 5)
         model = init_params(ActorCritic(hidden=256, dtype=torch.bfloat16,
                                         device="cuda"), tg)
@@ -753,7 +949,8 @@ def main() -> int:
                  else None)
         obs, st = tenv.reset_staggered(tg, BATCH)
         budget = isinstance(tenv, RoomGridLevel)
-        st, fresh_buffer = stagger_budget(tenv, st, tg, fresh_buffer)
+        if wrap is None:
+            st, fresh_buffer = stagger_budget(tenv, st, tg, fresh_buffer)
         reps = 1 if env_id in ONE_TIMED_STEP else 3
         step = make_train_step(tenv, model, cfg, opt, resets=mode,
                                fresh_buffer=fresh_buffer)
@@ -762,14 +959,22 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         KERNEL.launches = KERNEL.observe_launches = 0
         t0 = time.perf_counter()
-        metrics = []
+        metrics, visits = [], []
         for _ in range(reps):
             st, obs, m = step(st, obs, tg, tpool)
             metrics.append(m)
+            if wrap is not None:
+                visits.append(st.wrapper.sum())
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / reps
         launches_t = KERNEL.launches, KERNEL.observe_launches
-        one_launch = mode == "pooled" and not has_step_hooks(tenv)
+        one_launch = (mode == "pooled" and wrap is None
+                      and not has_step_hooks(tenv))
+        visits = [int(v) for v in visits]
+        if wrap is not None and visits != [BATCH * ROLLOUT_LEN * (k + 2)
+                                           for k in range(reps)]:
+            raise AssertionError(f"visit counts {visits} do not grow by "
+                                 "B x T a train step")
         want = (reps * ROLLOUT_LEN, 0 if one_launch else reps * ROLLOUT_LEN)
         if launches_t != want:
             raise AssertionError(f"{short(env_id)} {mode} train steps: "
@@ -784,7 +989,7 @@ def main() -> int:
             if m.get("reset_overflow", 0) != 0 and not budget:
                 raise AssertionError(f"{mode}: reset_overflow {m}")
         lo, hi = tenv.reward_range
-        if not lo <= metrics[-1]["mean_reward"] <= hi:
+        if wrap is None and not lo <= metrics[-1]["mean_reward"] <= hi:
             raise AssertionError(f"{mode}: mean reward out of range")
         peak = torch.cuda.max_memory_allocated() / 2**30
         # where the time goes: the rollout and the update of one more
@@ -811,7 +1016,8 @@ def main() -> int:
         profile_rollout = lambda: cuda_events(lambda: rollout(
             model, tenv, st, obs, noise, mode, tg, n_buf, window))
         rate = BATCH * ROLLOUT_LEN / step_s
-        name = short(env_id)
+        name = (short(env_id) if wrap is None
+                else f"{wrap.__name__}({short(env_id)})")
         print(f"train step, {name} {mode} resets: {rate:.0f} env-steps/s "
               f"(B={BATCH}, T={ROLLOUT_LEN}, bf16 hidden=256; "
               f"{step_s * 1e3:.1f} ms per step; apart: rollout "
@@ -834,7 +1040,8 @@ def main() -> int:
                 "observe_launches": launches_t[1],
                 "launches_per_step": launches_t[0] // reps,
                 "observe_launches_per_step": launches_t[1] // reps,
-                "peak_gib": peak, "metrics": metrics[-1]}, profile_rollout
+                "peak_gib": peak, "visits": visits,
+                "metrics": metrics[-1]}, profile_rollout
 
     train, profile_later = {}, {}
     for mode in ("pooled", "fresh", "regen"):
@@ -843,6 +1050,12 @@ def main() -> int:
         key = f"{short(env_id)} {mode}"
         train[key], profile_later[key] = train_phase(env_id, mode,
                                                      fresh_buffer)
+    # a stateful wrapper's WrappedState batch through the pooled train step
+    key = "ActionBonus(DoorKey-8x8) pooled"
+    train[key], profile_later[key] = train_phase(ENV_ID, "pooled",
+                                                 wrap=WR.ActionBonus)
+    print(f"  visit counts after the timed steps: {train[key]['visits']} "
+          f"(B x T = {BATCH * ROLLOUT_LEN} a step)")
     torch.cuda.empty_cache()
 
     # one rotate epoch of the f32 update on the card and on the CPU, from
@@ -1040,6 +1253,80 @@ def main() -> int:
 
     generated = {short(env_id): generation(env_id) for env_id in GENERATION}
 
+    # rendering at full width: device time per call (every kernel the call
+    # launches, profiler) beside the byte bound (the state read once, the
+    # atlas read once, the frames written once, at the HBM rate)
+    def render_time(variant, tile=8):
+        kw = RENDER_VARIANTS[variant]
+        fn = lambda: get_frame(p, render_states, tile_size=tile, **kw)
+        out = fn()
+        ms, kernels = device_ms_all(fn, 20)
+        moved = (nbytes(render_states.grid, render_states.agent_pos,
+                        render_states.agent_dir, render_states.carrying, out)
+                 + get_atlas(tile).nbytes)
+        res = {"ms": ms, "call_ms": cuda_ms(fn, 20),
+               "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by":
+               "bytes", "frame_mb": out.numel() / 1e6,
+               "device_kernels": kernels}
+        print(f"render, DoorKey-8x8 B={BATCH} {variant} tile {tile}: device "
+              f"{ms * 1e3:.2f} us in {kernels:.0f} kernels (bound "
+              f"{res['bound_ms'] * 1e3:.2f} us by bytes, "
+              f"{res['frame_mb']:.1f} MB written; "
+              f"{res['call_ms'] * 1e3:.1f} us per call back to back; {card})")
+        return res
+
+    render_times = {f"{v} tile {t}": render_time(v, t)
+                    for t in (8, 32) for v in RENDER_VARIANTS}
+
+    # wrapped stepping at full width (B=4096, T=128 pooled steps of random
+    # actions, packed, staggered; JAX bench.py:400-417), beside the bare
+    # DoorKey-8x8 pooled stepping: env-steps/s (host clock around a
+    # synchronised pass after a warm-up), launches a step, and the device
+    # kernels a step (profiled at the end)
+    def wrapped_stepping(env_id, wrap):
+        senv = mt.make(env_id, device="cuda").packed()
+        w = senv if wrap is None else wrap(senv)
+        sg = senv.generator(SEED + 13)
+        spool = w.make_pool(sg, POOL_SIZE)
+        _, sst = w.reset_staggered(sg, BATCH)
+        rows = presample_reset_states(sg, spool, ROLLOUT_LEN)
+        keys = random_keys(sg, (ROLLOUT_LEN, BATCH, 2), "cuda")
+        acts = torch.randint(0, 7, (ROLLOUT_LEN, BATCH), generator=sg,
+                             device="cuda", dtype=torch.int32)
+
+        def run(s):
+            for t in range(ROLLOUT_LEN):
+                s = w.step_autoreset_presampled(keys[t], s, acts[t],
+                                                rows.rows(t))[1]
+            return s
+
+        sst = run(sst)  # warm-up
+        torch.cuda.synchronize()
+        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        t0 = time.perf_counter()
+        sst = run(sst)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        per_step = ((KERNEL.launches - l0) // ROLLOUT_LEN,
+                    (KERNEL.observe_launches - o0) // ROLLOUT_LEN)
+        res = {"env_steps_per_s": BATCH * ROLLOUT_LEN / secs,
+               "launches_per_step": per_step[0],
+               "observe_launches_per_step": per_step[1]}
+        return res, lambda: cuda_events(lambda: run(sst))
+
+    stepping, profile_stepping = {}, {}
+    for key, env_id, wrap in (
+            ("DoorKey-8x8 pooled", ENV_ID, None),
+            ("ImgObs(DoorKey-8x8) pooled", ENV_ID, WR.ImgObsWrapper),
+            ("NoDeath(LavaCrossingS9N2) pooled", LAVA_ID,
+             lambda e: WR.NoDeath(e, no_death_types=("lava",)))):
+        stepping[key], profile_stepping[key] = wrapped_stepping(env_id, wrap)
+        print(f"stepping, {key}: {stepping[key]['env_steps_per_s']:.0f} "
+              f"env-steps/s (B={BATCH}, T={ROLLOUT_LEN}, random actions; "
+              f"{stepping[key]['launches_per_step']} step + "
+              f"{stepping[key]['observe_launches_per_step']} observe "
+              f"launches a step; host clock; {card})")
+
     # pure packed stepping: one T=128 launch per chunk, the state carried
     # from chunk to chunk (host clock around the synchronised chunks)
     env_state = st0
@@ -1062,6 +1349,13 @@ def main() -> int:
         train[key]["device_kernels_per_rollout_step"] = kernels / ROLLOUT_LEN
         train[key]["copies_per_rollout_step"] = copies / ROLLOUT_LEN
         print(f"rollout of the {key} train step under the profiler: "
+              f"{kernels / ROLLOUT_LEN:.1f} device kernels + "
+              f"{copies / ROLLOUT_LEN:.1f} copies per step ({card})")
+    for key, later in profile_stepping.items():
+        kernels, copies = later()
+        stepping[key]["device_kernels_per_step"] = kernels / ROLLOUT_LEN
+        stepping[key]["copies_per_step"] = copies / ROLLOUT_LEN
+        print(f"stepping, {key} under the profiler: "
               f"{kernels / ROLLOUT_LEN:.1f} device kernels + "
               f"{copies / ROLLOUT_LEN:.1f} copies per step ({card})")
     del profile_later
@@ -1114,6 +1408,76 @@ def main() -> int:
     print(f"  greedy success rate of the DoorKey-5x5 policy: {rate:.4f} "
           f"(256 fresh episodes)")
 
+    # the JAX package's two wrapped learning guards on the card: an
+    # ImgObsWrapper stack with a policy over the packed array (JAX
+    # tests/test_learning.py:105) and NoDeath on LavaGapS5 (:270), pooled
+    class ArrayPolicy(torch.nn.Module):
+        """JAX tests/test_learning.py:105's ArrayPolicy: the packed view's
+        one-hot features, two bf16 dense layers, f32 heads."""
+
+        num_actions = 7
+
+        def __init__(self, view_size, hidden=64):
+            super().__init__()
+            dev = "cuda"
+            self.d1 = torch.nn.Linear(view_size ** 2 * 24, hidden,
+                                      device=dev)
+            self.d2 = torch.nn.Linear(hidden, hidden, device=dev)
+            self.pi = torch.nn.Linear(hidden, 7, device=dev)
+            self.v = torch.nn.Linear(hidden, 1, device=dev)
+            with torch.no_grad():  # Flax's Dense initialisation
+                for layer in (self.d1, self.d2, self.pi, self.v):
+                    std = math.sqrt(1 / layer.in_features) / .87962566103423978
+                    torch.nn.init.trunc_normal_(layer.weight, std=std,
+                                                a=-2 * std, b=2 * std)
+                    torch.nn.init.zeros_(layer.bias)
+
+        def forward(self, arr):
+            bf = torch.bfloat16
+            x = encode_packed(arr, bf)
+            x = torch.relu(torch.nn.functional.linear(
+                x, self.d1.weight.to(bf), self.d1.bias.to(bf)))
+            x = torch.relu(torch.nn.functional.linear(
+                x, self.d2.weight.to(bf), self.d2.bias.to(bf)))
+            x = x.float()
+            return self.pi(x), self.v(x).squeeze(-1)
+
+    def learn_wrapped(env, model, updates=30):
+        lcfg = PPOConfig(num_envs=128, rollout_len=64, num_epochs=2,
+                         num_minibatches=4, lr=1e-3)
+        g = env.generator(SEED)
+        opt = make_optimizer(model, lcfg)
+        obs, st = env.reset_staggered(g, lcfg.num_envs)
+        pool = env.make_pool(g, 256)
+        step = make_train_step(env, model, lcfg, opt, resets="pooled")
+        rewards = []
+        t0 = time.perf_counter()
+        for _ in range(updates):
+            st, obs, m = step(st, obs, g, pool)
+            rewards.append(float(m["mean_reward"]))
+        return rewards, time.perf_counter() - t0
+
+    torch.manual_seed(SEED)
+    img_env = WR.ImgObsWrapper(mt.make("MiniGrid-Empty-5x5-v0",
+                                      device="cuda").packed())
+    r, secs = learn_wrapped(img_env, ArrayPolicy(img_env.params.view_size))
+    first, last = sum(r[:5]) / 5, sum(r[-5:]) / 5
+    print(f"learning, ImgObs(Empty-5x5) pooled, array policy: mean reward "
+          f"first5 {first:.4f} -> last5 {last:.4f} over 30 updates "
+          f"({secs:.1f} s)")
+    if not (last > 0.10 and last > 5 * max(first, 1e-4)):
+        raise AssertionError(f"ImgObs pooled did not learn: {r}")
+    lava_env = WR.NoDeath(mt.make("MiniGrid-LavaGapS5-v0",
+                                 device="cuda").packed(),
+                         no_death_types=("lava",), death_cost=-0.2)
+    r, secs = learn_wrapped(lava_env, init_params(ActorCritic(
+        hidden=64, device="cuda"), lava_env.generator(SEED + 1)))
+    first, last = sum(r[:5]) / 5, sum(r[-5:]) / 5
+    print(f"learning, NoDeath(LavaGapS5) pooled: mean reward first5 "
+          f"{first:.4f} -> last5 {last:.4f} over 30 updates ({secs:.1f} s)")
+    if not (last > 0.02 and last > first + 0.02):
+        raise AssertionError(f"NoDeath pooled did not learn: {r}")
+
     main_steps = sum(t["launches"] for t in train.values())
     main_observes = sum(t["observe_launches"] for t in train.values())
     kernels = [{
@@ -1125,6 +1489,12 @@ def main() -> int:
         "launches_per_train_step": {k: t["launches_per_step"]
                                     for k, t in train.items()},
         "launches_pooled_rollout": launches,
+        # the launch sites this slice added: a wrapper stack's step and
+        # pooled stepping at full width, and the wrapper replays
+        "launches_per_wrapped_step": {
+            k: t["launches_per_step"] for k, t in stepping.items()}
+        | {f"{k} (B=256 replay)": w["launches_per_step"][0]
+           for k, w in wrappers.items()},
         "max_abs_err": max_err,
         "ms": ms1,
         "plain_ms": plain_ms1,
@@ -1150,6 +1520,11 @@ def main() -> int:
         "launches": main_observes,
         "launches_per_train_step": {k: t["observe_launches_per_step"]
                                     for k, t in train.items()},
+        "launches_per_wrapped_step": {
+            k: t["observe_launches_per_step"] for k, t in stepping.items()}
+        | {f"{k} (B=256 replay)": w["launches_per_step"][1]
+           for k, w in wrappers.items()},
+        "launches_per_frame": frame_launches,
         "max_abs_err": observe_err,
         "ms": ms_o,
         "plain_ms": plain_ms_o,
@@ -1167,7 +1542,9 @@ def main() -> int:
                                          if kk != "metrics"}
                                      for k, t in train.items()},
                       "update_max_abs_err": update_err,
-                      "generation": generated}))
+                      "generation": generated, "render": render_times,
+                      "wrapped_stepping": stepping,
+                      "wrappers": wrappers}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

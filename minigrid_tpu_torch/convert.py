@@ -15,6 +15,7 @@ import torch
 from minigrid_tpu_torch.core.types import (STATE_FIELDS, EnvState,
                                            resolve_device)
 from minigrid_tpu_torch.envs.base import LayoutPool, pool_from_states
+from minigrid_tpu_torch.wrappers import WrappedState
 
 DENSE_LAYERS = ("img_in", "trunk1", "trunk2", "policy", "value")
 
@@ -128,6 +129,23 @@ def env_state_from_numpy(src, device=None) -> EnvState:
         rng=torch.as_tensor(rng.view(np.int32), device=dev),
         extra=extra,
     )
+
+
+def state_from_numpy(src, device=None):
+    """A batched state exported from JAX, wrapped or not: a JAX
+    ``WrappedState`` (an object or mapping with ``inner`` and ``wrapper``;
+    ``inner`` nested to any depth) becomes the port's
+    ``wrappers.WrappedState``, its ``wrapper`` array (visit counts, a goal
+    cache, seed indices) a tensor of the same dtype; an EnvState goes
+    through :func:`env_state_from_numpy`."""
+    try:
+        inner, wrapper = _field(src, "inner"), _field(src, "wrapper")
+    except (KeyError, AttributeError):
+        return env_state_from_numpy(src, device)
+    return WrappedState(
+        inner=state_from_numpy(inner, device),
+        wrapper=torch.as_tensor(np.array(wrapper),
+                                device=resolve_device(device)))
 
 
 def layout_pool_from_entries(entries, device=None) -> LayoutPool:

@@ -61,6 +61,14 @@ def _overlay_carried(params: EnvParams, state: EnvState, u: torch.Tensor):
     return u
 
 
+def gen_obs_grid(params: EnvParams, state: EnvState):
+    """View cells (B, V, V, 5) uint8 + visibility (B, V, V) bool, both
+    agent-frame [vx, vy]: the window with the carried object overlaid,
+    invisible cells kept (the renderer clears them itself)."""
+    u, vis = _view_packed(params, state)
+    return G.unpack_cells(_overlay_carried(params, state, u)), vis
+
+
 def packed_to_image(packed: torch.Tensor) -> torch.Tensor:
     """(..., V, V) 9-bit packed view -> (..., V, V, 3) uint8 image."""
     return torch.stack([packed & 15, (packed >> 4) & 7, (packed >> 7) & 3],

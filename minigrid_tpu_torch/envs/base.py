@@ -16,8 +16,9 @@ episode's ``rng`` from it exactly as the JAX package does.
 On the card every transition is the fused CUDA kernel's
 (``ops/fused_step.py``); on the CPU it is its plain version. An env without
 step hooks steps and takes the pooled broadcast row in one launch. An env
-that overrides ``_transform_action``, ``_pre_step`` or ``_post_step``
-(:func:`has_step_hooks`) runs the hook path, :func:`hooked_step`: the
+that overrides ``_transform_action``, ``_pre_step`` or ``_post_step``, or
+carries transition wrappers (``transitions``, see ``wrappers``)
+(:func:`has_step_hooks`), runs the hook path, :func:`hooked_step`: the
 action transform and ``_pre_step`` in PyTorch, the kernel's step entry
 without a reset row (``extra``, ``rng`` and ``mission`` pass through it
 untouched), then ``_post_step`` in PyTorch. The resets that put a different
@@ -50,6 +51,8 @@ from minigrid_tpu_torch.ops.fused_step import (fused_observe, fused_rollout,
 # The XOR salt that derives a reset episode's rng from its step key
 # (minigrid_tpu/envs/base.py:_apply_broadcast_reset), as int32 bit patterns.
 RESET_RNG_SALT = np.array([0x5DEECE66, 0xB5297A4D], np.uint32).view(np.int32)
+# the state fields an observation reads
+OBSERVED = ("grid", "agent_pos", "agent_dir", "carrying")
 
 
 def random_keys(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -258,18 +261,31 @@ def autoreset_step_select(env, states: EnvState, actions,
 
 def autoreset_step(env, keys, states: EnvState, actions,
                    generator: torch.Generator):
-    """Generic auto-resetting step through ``env.step``/``env.reset``: a
-    finishing episode is replaced by a freshly generated layout, so every
-    reset is an independent draw (the distribution reference path). Both
-    the stepped and the reset observation are computed and selected;
-    :meth:`MiniGridEnv.step_autoreset` observes once instead."""
+    """Generic auto-resetting step through ``env.step``/``env.reset`` of
+    any env-like, wrapper stacks included (``states`` an EnvState or a
+    ``wrappers.WrappedState``): a finishing episode is replaced by a
+    freshly generated layout, so every reset is an independent draw (the
+    distribution reference path). Both the stepped and the reset
+    observation are computed and selected; :meth:`MiniGridEnv.
+    step_autoreset` observes once instead."""
     obs, st, reward, term, trunc, info = env.step(keys, states, actions)
     done = term | trunc
     obs_r, st_r = env.reset(generator, states.batch_size)
-    st = select_reset_states(done, st, st_r)
-    obs = {k: torch.where(done.reshape((-1,) + (1,) * (v.ndim - 1)),
-                          obs_r[k], v) for k, v in obs.items()}
-    return obs, st, reward, term, trunc, info
+    return (select_obs(done, obs, obs_r), select_reset_states(done, st, st_r),
+            reward, term, trunc, info)
+
+
+def select_obs(done, obs, obs_r):
+    """The reset observations ``obs_r`` selected into the envs where
+    ``done``: a dict of (B, ...) tensors, or one tensor (a wrapper's array
+    observation)."""
+    def pick(cur, new):
+        return torch.where(done.reshape((-1,) + (1,) * (cur.ndim - 1)), new,
+                           cur)
+
+    if isinstance(obs, dict):
+        return {k: pick(v, obs_r[k]) for k, v in obs.items()}
+    return pick(obs, obs_r)
 
 
 # ---------------------------------------------------------------------------
@@ -351,18 +367,37 @@ def hooked_step(env, keys, states: EnvState, actions):
     ``_post_step`` and the replaced ``terminated`` after. ``extra``, ``rng``
     and ``mission`` pass through the fused step untouched.
 
+    The transition wrappers composed into the env (``env.transitions``,
+    outermost first; ``wrappers._composed_step_env``) wrap those hooks as
+    the JAX package's composed ``step_state`` does: their action pre-maps
+    outermost first before everything, their outcome post-maps innermost
+    first after everything, each seeing the pre-step state and the action
+    it forwarded inward.
+
     Returns ``(state, obs, reward, terminated, truncated)``: ``obs`` is the
-    step entry's packed observation when ``_post_step`` returned the state
-    it was given (so the observation is that of the returned state), else
-    None."""
+    step entry's packed observation when the hooks left the grid, agent
+    and carried object of the state it produced in place (``_post_step``
+    returned that very state, and the outcome post-maps changed no
+    observed field), else None."""
     prev = states
-    action = _actions(env._transform_action(states, _actions(actions)))
+    action, forwarded = _actions(actions), []
+    for w in env.transitions:
+        action = _actions(w.transform_action(keys, prev, action))
+        forwarded.append(action)
+    action = _actions(env._transform_action(states, action))
     states = env._pre_step(keys, states, action)
     st, obs, reward, term, _ = fused_rollout(env.params, states, action[None])
     new, reward, term = env._post_step(prev, st, action, reward[0], term[0])
     obs = obs[0] if new is st else None
     new = new.replace(terminated=term)
-    return new, obs, reward, term, new.truncated
+    trunc = new.truncated
+    for w, a in zip(env.transitions[::-1], forwarded[::-1]):
+        out, reward, term, trunc = w.transform_outcome(
+            keys, prev, new, a, reward, term, trunc)
+        if any(getattr(out, f) is not getattr(new, f) for f in OBSERVED):
+            obs = None
+        new = out
+    return new, obs, reward, term, trunc
 
 
 def _actions(actions) -> torch.Tensor:
@@ -374,6 +409,9 @@ class MiniGridEnv:
     device; all episode data lives in the batched :class:`EnvState`."""
 
     reward_range = (0, 1)  # minigrid_env.py:61; DynamicObstacles overrides
+    # transition wrappers composed into this env's step, outermost first
+    # (set on a copy of the env by ``wrappers._composed_step_env``)
+    transitions: tuple = ()
 
     @property
     def num_actions(self) -> int:

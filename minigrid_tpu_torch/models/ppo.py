@@ -11,6 +11,13 @@ auto-resets finished envs in one of three modes:
   through a device-side cursor (``envs/base.py::autoreset_step_fresh``);
 - ``"regen"``: a fresh ``_gen_grid`` batch every step, selected where done.
 
+A wrapper stack (``wrappers``) rolls out like a bare env: its pooled and
+fresh resets run batched (``make_train_step`` refuses a stack they cannot
+run), a ``WrappedState`` batch threads through, a wrapper's observations
+that are not the native dict are stored as they come and fed to the model
+as they are, and no mission counts are carried (a wrapper may change the
+mission).
+
 On the card every env step is one launch of the fused CUDA kernel, and the
 fresh and regen modes add one launch of its observe entry per step. The
 update is GAE, then ``num_epochs`` passes over ``num_minibatches``
@@ -32,10 +39,13 @@ from minigrid_tpu_torch.envs.base import (LayoutPool, presample_reset_states,
                                           random_keys)
 from minigrid_tpu_torch.models.actor_critic import (encode_obs,
                                                     mission_counts)
+from minigrid_tpu_torch.wrappers import Wrapper
 
 RESET_MODES = ("regen", "pooled", "fresh")
 SHUFFLES = ("rotate", "timestep", "sample")
 OBS_KEYS = ("img_feat", "mission_counts", "direction")
+# a minibatch's entries besides the stored observations
+TRAJ_KEYS = ("action", "log_prob", "adv", "ret")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,11 +148,18 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
                          f"{resets!r}")
     T = noise.gumbel.shape[0]
     dev = noise.gumbel.device
-    view_key = "packed" if "packed" in obs else "image"
+    # the native observation dict is encoded once (the encoding is stored
+    # and fed to the policy); a wrapper's other observations (an array, a
+    # dict without a view) are stored as they come, and the model takes
+    # them as they are
+    std_obs = isinstance(obs, dict) and ("packed" in obs or "image" in obs)
+    view_key = "packed" if std_obs and "packed" in obs else "image"
     # a mission changes only at a reset, so the pooled mode carries its
-    # counts and refreshes them from the reset row; the other modes count
-    # the tokens of each step's observation
-    carry = resets == "pooled"
+    # counts and refreshes them from the reset row (the bare row's tokens:
+    # not under a wrapper, which may transform the mission); otherwise
+    # each step's tokens are counted
+    carry = (resets == "pooled" and std_obs and "mission" in obs
+             and not isinstance(env, Wrapper))
     if carry:
         counts = mission_counts(obs["mission"])
         reset_counts = mission_counts(noise.reset_rows.mission)   # (T, VOCAB)
@@ -156,8 +173,10 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
             enc = encode_obs({view_key: obs[view_key],
                               "mission_counts": counts,
                               "direction": obs["direction"]})
-        else:
+        elif std_obs:
             enc = encode_obs(obs)
+        else:
+            enc = obs
         logits, value = model(enc)
         action = torch.argmax(logits + noise.gumbel[t], dim=-1)
         log_prob = _selected_log_prob(torch.log_softmax(logits, -1), action)
@@ -180,9 +199,13 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
                                  counts)
         steps.append(Transition(enc, action.to(torch.int32), log_prob, value,
                                 reward, done))
-    traj = Transition(
-        {k: torch.stack([s.obs[k] for s in steps]) for k in steps[0].obs},
-        *(torch.stack(f) for f in list(zip(*steps))[1:]))
+    if isinstance(steps[0].obs, dict):
+        traj_obs = {k: torch.stack([s.obs[k] for s in steps])
+                    for k in steps[0].obs}
+    else:
+        traj_obs = torch.stack([s.obs for s in steps])
+    traj = Transition(traj_obs,
+                      *(torch.stack(f) for f in list(zip(*steps))[1:]))
     return env_state, obs, traj, overflow
 
 
@@ -201,12 +224,21 @@ def gae(reward, value, done, last_value, gamma: float, gae_lambda: float):
     return adv, adv + value
 
 
+def policy_input(mb: dict):
+    """The stored observations of a minibatch, as the policy takes them:
+    the entry ``"obs"`` (an array observation), else every entry but the
+    trajectory's own."""
+    if "obs" in mb:
+        return mb["obs"]
+    return {k: v for k, v in mb.items() if k not in TRAJ_KEYS}
+
+
 def ppo_loss(model, cfg: PPOConfig, mb: dict):
     """The clipped-surrogate loss of one minibatch (a dict of the stored
-    encoding, action, log_prob, adv and ret over any leading shape); the
-    advantage is normalised over the minibatch. Returns (total, metrics)
-    with detached metrics."""
-    logits, value = model({k: mb[k] for k in OBS_KEYS})
+    observations, action, log_prob, adv and ret over any leading shape);
+    the advantage is normalised over the minibatch. Returns (total,
+    metrics) with detached metrics."""
+    logits, value = model(policy_input(mb))
     log_probs = torch.log_softmax(logits, -1)
     lp = _selected_log_prob(log_probs, mb["action"])
     ratio = torch.exp(lp - mb["log_prob"])
@@ -300,8 +332,9 @@ def ppo_update(model, optimizer, cfg: PPOConfig, traj: Transition,
         _, last_value = model(last_obs)
     adv, ret = gae(traj.reward, traj.value, traj.done, last_value,
                    cfg.gamma, cfg.gae_lambda)
-    data = dict(traj.obs, action=traj.action, log_prob=traj.log_prob,
-                adv=adv, ret=ret)
+    obs = traj.obs if isinstance(traj.obs, dict) else {"obs": traj.obs}
+    data = dict(obs, action=traj.action, log_prob=traj.log_prob, adv=adv,
+                ret=ret)
     per_mb = [update_minibatch(model, optimizer, cfg, mb)
               for _ in range(cfg.num_epochs)
               for mb in epoch_minibatches(data, cfg, generator)]
@@ -349,6 +382,9 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
         raise ValueError(f"resets must be one of {RESET_MODES}, got "
                          f"{resets!r}")
     check_config(cfg)
+    if resets in ("pooled", "fresh") and isinstance(env, Wrapper):
+        # the model must take the stack's observations
+        env.check_fast_paths()
     n_buf, window = (fresh_sizes(env, cfg, fresh_buffer)
                      if resets == "fresh" else (None, 32))
 

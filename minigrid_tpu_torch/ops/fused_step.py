@@ -66,14 +66,16 @@ STEP_HOOKS = ("_transform_action", "_pre_step", "_post_step")
 
 
 def has_step_hooks(env) -> bool:
-    """Whether ``env``'s class overrides one of :data:`STEP_HOOKS`: its
-    steps then run the hook path around the fused step
-    (``envs/base.py::hooked_step``) instead of the broadcast reset-row
-    entry."""
+    """Whether ``env``'s class overrides one of :data:`STEP_HOOKS`, or the
+    env carries transition wrappers composed into its step (its
+    ``transitions``, set on the instance by ``wrappers``): its steps then
+    run the hook path around the fused step (``envs/base.py::hooked_step``)
+    instead of the broadcast reset-row entry."""
     from minigrid_tpu_torch.envs.base import MiniGridEnv
 
-    return any(getattr(type(env), name) is not getattr(MiniGridEnv, name)
-               for name in STEP_HOOKS)
+    return bool(env.transitions) or any(
+        getattr(type(env), name) is not getattr(MiniGridEnv, name)
+        for name in STEP_HOOKS)
 
 
 def require_core_dynamics(env) -> None:
@@ -81,10 +83,16 @@ def require_core_dynamics(env) -> None:
     of the kernel's direct entry with a broadcast reset row.
 
     The fused step implements only ``step_core``: an env that overrides
-    ``step_state``/``_pre_step``/``_post_step``/``_transform_action`` would
-    get wrong dynamics through it."""
+    ``step_state``/``_pre_step``/``_post_step``/``_transform_action``, or
+    carries composed transition wrappers, would get wrong dynamics through
+    it."""
     from minigrid_tpu_torch.envs.base import MiniGridEnv
 
+    if env.transitions:
+        names = ", ".join(type(w).__name__ for w in env.transitions)
+        raise NotImplementedError(
+            f"{type(env).__name__} carries transition wrappers ({names}); "
+            "the fused step implements only the core transition")
     for name in ("step_state",) + STEP_HOOKS:
         if getattr(type(env), name) is not getattr(MiniGridEnv, name):
             raise NotImplementedError(

@@ -251,3 +251,88 @@ def test_reset_modes_step_then_observe_on_card(cuda_device, mode):
     assert out[4].all() and (new.step_count == 0).all()
     assert torch.equal(obs["packed"], fused_observe_reference(env.params,
                                                               new))
+
+
+def _same(a, b):
+    """Equal tensors, dicts or states of them across devices (NaN equals
+    NaN)."""
+    if hasattr(a, "tensors"):
+        a, b = a.tensors(), b.tensors()
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same(a[k], b[k]) for k in b)
+    a, b = a.cpu(), b.cpu()
+    return torch.equal(a, b) or (
+        a.is_floating_point() and a.shape == b.shape
+        and bool(((a == b) | (a.isnan() & b.isnan())).all()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [8, 32])
+def test_frames_on_card_match_cpu(cuda_device, tile):
+    """Full frames with and without the view cone and POV frames of
+    DoorKey-8x8 states after interaction steps, on the card (the cone and
+    POV cells from the observe entry, one launch each) and on the CPU."""
+    from minigrid_tpu_torch.render import get_frame
+
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0",
+                                  device=cuda_device).packed()
+    g = env.generator(2)
+    B = 1024
+    _, st = env.reset(g, B)
+    choice = torch.tensor(INTERACT, device=cuda_device)
+    for _ in range(8):
+        a = choice[torch.randint(0, 8, (B,), generator=g,
+                                 device=cuda_device)]
+        st = env.step(random_keys(g, (B, 2), cuda_device), st, a)[1]
+    st_c = st.map(lambda x: x.cpu())
+    o0 = KERNEL.observe_launches
+    for kw in ({}, {"highlight": False}, {"agent_pov": True}):
+        got = get_frame(env.params, st, tile_size=tile, **kw)
+        assert _same(got, get_frame(env.params, st_c, tile_size=tile, **kw))
+    assert KERNEL.observe_launches - o0 == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stack", ["NoDeath", "ActionBonus(NoDeath)",
+                                   "ImgObs"])
+def test_wrapped_pooled_steps_on_card_match_cpu(cuda_device, stack):
+    """A wrapper stack's pooled auto-reset on the card and on the CPU with
+    the same keys, actions and rows: a transition or stateful stack takes
+    the step entry without a row and the observe entry (the NoDeath lava
+    cancel happens before the select), a stateless one the row entry."""
+    from minigrid_tpu_torch import wrappers as W
+    from minigrid_tpu_torch.envs.base import presample_reset_states
+
+    def wrap(env):
+        if stack == "ImgObs":
+            return W.ImgObsWrapper(env)
+        nd = W.NoDeath(env, no_death_types=("lava",), death_cost=-0.2)
+        return W.ActionBonus(nd) if stack.startswith("Action") else nd
+
+    env_id = "MiniGrid-LavaGapS5-v0"
+    w = wrap(minigrid_tpu_torch.make(env_id, device=cuda_device).packed())
+    wc = wrap(minigrid_tpu_torch.make(env_id, device="cpu").packed())
+    g = w.generator(3)
+    B, T = 1024, 16
+    _, st = w.reset_staggered(g, B)
+    st_c = st.map(lambda x: x.cpu())
+    rows = presample_reset_states(g, w.make_pool(g, 64), T)
+    counts = KERNEL.launches, KERNEL.observe_launches
+    penalties = 0
+    for t in range(T):
+        keys = random_keys(g, (B, 2), cuda_device)
+        a = torch.where(torch.rand((B,), generator=g, device=cuda_device)
+                        < 0.7, 2, torch.randint(0, 7, (B,), generator=g,
+                                                device=cuda_device))
+        a = a.to(torch.int32)
+        out = w.step_autoreset_presampled(keys, st, a, rows.rows(t))
+        ref = wc.step_autoreset_presampled(keys.cpu(), st_c, a.cpu(),
+                                           rows.rows(t).to("cpu"))
+        for x, y in zip(out[:5], ref[:5]):
+            assert _same(x, y), t
+        st, st_c = out[1], ref[1]
+        penalties += int((out[2] < 0).sum())
+    observes = 0 if stack == "ImgObs" else T
+    assert (KERNEL.launches - counts[0],
+            KERNEL.observe_launches - counts[1]) == (T, observes)
+    assert stack != "NoDeath" or penalties > 0

@@ -15,7 +15,8 @@ import torch
 import jax
 
 import minigrid_tpu
-from minigrid_tpu_torch.convert import env_state_from_numpy, flatten_extra
+from minigrid_tpu_torch.convert import (env_state_from_numpy, flatten_extra,
+                                        state_from_numpy)
 from minigrid_tpu_torch.core import constants as C
 
 CPU = "cpu"
@@ -43,6 +44,12 @@ def jax_states(env_id: str, batch: int, seed: int = 0, packed: bool = True):
 def export(states):
     """Batched JAX EnvState -> the port's EnvState on the CPU."""
     return env_state_from_numpy(jax.tree.map(np.asarray, states), CPU)
+
+
+def export_state(states):
+    """Batched JAX state, wrapped (a JAX ``WrappedState``) or not -> the
+    port's state on the CPU."""
+    return state_from_numpy(jax.tree.map(np.asarray, states), CPU)
 
 
 def action_stream(kind: str, T: int, B: int, seed: int = 1) -> np.ndarray:
@@ -240,12 +247,18 @@ def share_cpu():
 
 
 def to_jax_state(port_state):
-    """The port's EnvState (CPU tensors) as a batched JAX EnvState: the
-    inverse of :func:`export`. Dotted ``extra`` keys nest again, BabyAI's
-    ``instr.*`` into the JAX ``InstrState``/``Descs`` (packed masks back to
-    uint32)."""
+    """The port's state (CPU tensors) as a batched JAX state: the inverse
+    of :func:`export_state`. A ``WrappedState`` becomes JAX's, nested as
+    it is; dotted ``extra`` keys nest again, BabyAI's ``instr.*`` into the
+    JAX ``InstrState``/``Descs`` (packed masks back to uint32)."""
     import jax.numpy as jnp
     from minigrid_tpu.core.types import EnvState as JEnvState
+    from minigrid_tpu.wrappers import WrappedState as JWrappedState
+    from minigrid_tpu_torch.wrappers import WrappedState
+
+    if isinstance(port_state, WrappedState):
+        return JWrappedState(inner=to_jax_state(port_state.inner),
+                             wrapper=jnp.asarray(port_state.wrapper.numpy()))
 
     def arr(t):
         return jnp.asarray(t.numpy())
