@@ -16,7 +16,9 @@ Phases, each fatal on failure:
    reset row; then both entries on states of Unlock, KeyCorridorS6R3,
    ObstructedMaze-Full (16x16), BabyAI-GoToObj and BabyAI-BossLevel (22x22)
    with the uniform and the interaction streams, the step entry without a
-   row (their hook path);
+   row (their hook path); then the 64-bit view rows: both entries at views
+   33 and 63 on DoorKey-8x8 and MultiRoom-N6 (25x25), B=1024, at every
+   group width that fits;
 3. the main path through the public entry points: DoorKey-8x8 with packed
    observations, a 1024-entry layout pool, 4096 staggered envs, the bf16
    ActorCritic and one 128-step pooled rollout, with the kernel's launch
@@ -35,6 +37,10 @@ Phases, each fatal on failure:
    stateful wrapper over NoDeath) stepped 32 times at B=256 with pooled
    resets (ReseedWrapper: its own) on the card and replayed on the CPU,
    bit-exact (NaN-equal), with their launches a step;
+3c. the BabyAI bot on the card: 8 levels of JAX tests/test_bot.py's cut,
+   8 seeds each as one batch, solved within 240 steps, each batch replayed
+   on the CPU from the same initial states (the bots' actions and every
+   state tensor bit-exact), with the steps and seconds per level;
 4. the PPO train step at full width (B=4096, T=128, bf16 hidden=256,
    PPOConfig defaults) in each reset mode: pooled, fresh, regen, one
    warm-up step then three timed ones, with both entries' launch counts
@@ -46,8 +52,10 @@ Phases, each fatal on failure:
    the JAX bench does) and KeyCorridorS6R3 pooled, with the device kernels
    per rollout step (profile) and the reset overflow;
    and ActionBonus(DoorKey-8x8) pooled, its visit counts growing by B x T
-   a train step; then one rotate epoch of the f32 update on the card
-   against the same epoch on the CPU;
+   a train step; then the recurrent train step (DoorKey-8x8 fresh,
+   ActorCriticRNN(hidden=256) bf16, truncated BPTT over the rotate
+   slabs); then one rotate epoch of the f32 update, MLP and recurrent, on
+   the card against the same epoch on the CPU;
 5. timings: the rollout, pure packed stepping, and the kernel's device
    time per launch (profiler) at T=1 and T=128 for B=4096 and at T=128 for
    B=65536, with the group width G chosen for each, and the observe
@@ -61,12 +69,18 @@ Phases, each fatal on failure:
    tile 8 and 32 (device time of a call beside its byte bound); pooled
    stepping at B=4096, T=128 of bare DoorKey-8x8, ImgObs(DoorKey-8x8) and
    NoDeath(LavaCrossingS9N2) (env-steps/s, launches and device kernels a
-   step);
+   step), and of the 64-bit rows' paths (DoorKey-8x8 at view 33, a
+   ViewSizeWrapper of 63), whose kernel times at DoorKey-8x8 view 33 and
+   MultiRoom-N6 view 63 are taken beside the other shapes;
 6. learning on the card: the JAX package's guards (Empty-5x5 regen,
    pooled+packed and fresh, 30 updates; DoorKey-5x5, 120 updates at
    B=256), then the greedy success rate of the DoorKey-5x5 policy; then
    the two wrapped guards: ImgObs(Empty-5x5) with a policy over the packed
-   array and NoDeath(LavaGapS5), pooled, 30 updates.
+   array and NoDeath(LavaGapS5), pooled, 30 updates; the recurrent guard
+   (Empty-5x5 fresh, ActorCriticRNN(hidden=64), 30 updates); the imitation
+   pipeline: 300 bot demos of GoToRedBallGrey generated on the card,
+   behaviour cloning (accuracy > 0.9) and the greedy success rate (> 0.5)
+   with the eval's cap derived from the episodes' budgets.
 
 The line before the last is the card as ``nvidia-smi`` reports it; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -146,6 +160,19 @@ GENERATION = ["BabyAI-BossLevel-v0", "MiniGrid-KeyCorridorS6R3-v0"]
 RENDER_VARIANTS = {"full": {}, "no highlight": {"highlight": False},
                    "pov": {"agent_pov": True}}
 LAVA_ID = "MiniGrid-LavaCrossingS9N2-v0"  # JAX bench.py:411's NoDeath env
+# views wider than 31 take the kernel's 64-bit view rows; their timed
+# shapes: (name, env id, view size)
+WIDE_VIEWS = (33, 63)
+WIDE_SHAPES = [("DoorKey-8x8 view 33", ENV_ID, 33),
+               ("MultiRoom-N6 25x25 view 63", "MiniGrid-MultiRoom-N6-v0", 63)]
+# the bot on the card: a cut of JAX tests/test_bot.py's FAST_LEVELS, each
+# solved within the reference's 240 steps in at most 8 seeds
+BOT_LEVELS = ["BabyAI-GoToRedBallGrey-v0", "BabyAI-GoToLocal-v0",
+              "BabyAI-OpenDoorsOrderN4-v0", "BabyAI-PutNextLocal-v0",
+              "BabyAI-UnlockLocal-v0", "BabyAI-BlockedUnlockPickup-v0",
+              "BabyAI-KeyCorridorS3R3-v0", "BabyAI-MoveTwoAcrossS8N9-v0"]
+BOT_SEEDS = 8
+BOT_STEPS = 240
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # INT32 issue rate of an H100 SXM: 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x the 1.98 GHz boost clock that the
@@ -419,6 +446,8 @@ def compare(name, got, want) -> float:
 
 
 def main() -> int:
+    script_t0 = time.perf_counter()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -426,8 +455,10 @@ def main() -> int:
         return 1
     import minigrid_tpu_torch as mt
     from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
+                                                        ActorCriticRNN,
                                                         encode_obs,
-                                                        init_params)
+                                                        init_params,
+                                                        init_params_rnn)
     from minigrid_tpu_torch.envs.base import (autoreset_step_select,
                                               draw_independent_rows,
                                               independent_candidates,
@@ -440,7 +471,9 @@ def main() -> int:
     from minigrid_tpu_torch.envs.babyai.core import level as level_module
     from minigrid_tpu_torch.envs.babyai.core.level import (USE_DONE_ACTIONS,
                                                            RoomGridLevel)
-    from minigrid_tpu_torch.models.eval import evaluate_success
+    from minigrid_tpu_torch.models.bc import behavior_clone
+    from minigrid_tpu_torch.models.eval import episode_budget, evaluate_success
+    from minigrid_tpu_torch.utils.demos import generate_demos
     from minigrid_tpu_torch.models.ppo import (PPOConfig, epoch_minibatches,
                                                fresh_sizes, gae,
                                                make_optimizer,
@@ -452,6 +485,8 @@ def main() -> int:
         GROUP_LANES, KERNEL, _fused_observe_cuda, _fused_rollout_cuda,
         fused_observe_reference, fused_rollout_reference, has_step_hooks,
         launch_geometry, sm_count)
+
+    from minigrid_tpu_torch.utils.demos import bot_episodes, reset_seeds
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -595,6 +630,35 @@ def main() -> int:
         observe_errs.append(check_observe(f"{name} B={B}", env_id, B))
     max_err = max(errs)
     observe_err = max(observe_errs)
+    # the 64-bit view rows (33 <= V <= 63): both entries at V=33 and V=63
+    # on DoorKey-8x8 and MultiRoom-N6's 25x25, B=1024, at the picked G (the
+    # step entry with a reset row, T=32) and at every other G that fits
+    # (T=8)
+    wide_errs, wide_observe_errs = [], []
+    for env_id in (ENV_ID, "MiniGrid-MultiRoom-N6-v0"):
+        wp = mt.make(env_id, device="cpu").params
+        for view in WIDE_VIEWS:
+            name = f"{short(env_id)} view {view}"
+            wide_errs.append(check(f"{name} B=1024 T=32 reset-row entry",
+                                   env_id, 1024, 32, hint="interact",
+                                   reset=True, view=view))
+            wide_observe_errs.append(check_observe(f"{name} B=1024",
+                                                   env_id, 1024, view=view))
+            for G in GROUP_LANES:
+                try:
+                    launch_geometry(1024, wp.width, wp.height, view, sms, G)
+                except ValueError:  # one warp of G-lane envs does not fit
+                    print(f"  {name}: G={G} does not fit the shared memory")
+                    continue
+                wide_errs.append(check(f"{name} G={G} B=1024 T=8",
+                                       env_id, 1024, 8, hint="interact",
+                                       reset=True, view=view,
+                                       group_lanes=G))
+                wide_observe_errs.append(check_observe(
+                    f"{name} G={G} B=1024", env_id, 1024, view=view,
+                    group_lanes=G))
+    wide_err = max(wide_errs)
+    wide_observe_err = max(wide_observe_errs)
 
     # from here on the card path must never run the plain transition or
     # observation
@@ -926,6 +990,57 @@ def main() -> int:
     wrappers = {name: replay_wrapper(name, *case)
                 for name, case in wrapper_cases().items()}
 
+    # --- 3c. the BabyAI bot on the card, replayed on the CPU --------------
+    # each level's 8 seeds as one batch on the card (the hook path: a step
+    # entry and an observe entry a step), one host copy of the batch's state
+    # a step; the bot must solve a seed within 240 steps. The same initial
+    # states, copied to the CPU, stepped there by the CPU's bots: the
+    # actions and every state tensor of every step bit-exact, extra included
+    bot_runs = {}
+    for level in BOT_LEVELS:
+        benv = mt.make(level, device="cuda")
+        obs0, st0_b = reset_seeds(benv, range(BOT_SEEDS))
+        trace, cpu_trace = [], []
+        torch.cuda.synchronize()
+        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        t0 = time.perf_counter()
+        eps = bot_episodes(benv, obs0, st0_b, BOT_STEPS, trace)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = (KERNEL.launches - l0, KERNEL.observe_launches - o0)
+        if launched != (len(trace), len(trace)):
+            raise AssertionError(f"{level}: (step, observe) launches "
+                                 f"{launched} over {len(trace)} steps")
+        solved = [b for b, e in enumerate(eps) if e[4]]
+        if not solved:
+            raise AssertionError(f"the bot solved no seed of {level} in "
+                                 f"{BOT_STEPS} steps")
+        cpu_eps = bot_episodes(mt.make(level, device="cpu"),
+                               {k: v.cpu() for k, v in obs0.items()},
+                               st0_b.map(lambda x: x.cpu()), BOT_STEPS,
+                               cpu_trace)
+        if len(cpu_trace) != len(trace):
+            raise AssertionError(f"{level}: the CPU replay took "
+                                 f"{len(cpu_trace)} steps, the card "
+                                 f"{len(trace)}")
+        for t, ((a, s_card), (ca, s_cpu)) in enumerate(zip(trace,
+                                                           cpu_trace)):
+            if not np.array_equal(a, ca):
+                raise AssertionError(f"{level} step {t}: the bots' actions "
+                                     f"differ between the card and the CPU")
+            assert_same(f"{level} bot step {t}", s_card, s_cpu)
+        if [e[2] for e in eps] != [e[2] for e in cpu_eps]:
+            raise AssertionError(f"{level}: the episodes differ")
+        lengths = [len(eps[b][2]) for b in solved]
+        bot_runs[level] = {"solved_seeds": solved, "solved_steps": lengths,
+                           "batch_steps": len(trace), "s": secs,
+                           "launches": launched}
+        print(f"bot, {short(level)}: solved seeds {solved} of "
+              f"{BOT_SEEDS} in {lengths} steps; {len(trace)} batch steps "
+              f"(B={BOT_SEEDS}) in {secs:.2f} s on the card, {launched[0]} "
+              f"step + {launched[1]} observe launches; the CPU replay "
+              f"bit-exact (host clock; {card})")
+
     # --- 4. the train step at full width --------------------------------
     cfg = PPOConfig()  # B=4096, T=128, 1 epoch of 4 rotate minibatches
     assert (cfg.num_envs, cfg.rollout_len) == (BATCH, ROLLOUT_LEN)
@@ -1058,6 +1173,89 @@ def main() -> int:
           f"(B x T = {BATCH * ROLLOUT_LEN} a step)")
     torch.cuda.empty_cache()
 
+    # the recurrent train step at full width: DoorKey-8x8 fresh, B=4096,
+    # T=128, ActorCriticRNN(hidden=256) bf16, PPOConfig() (the JAX bench's
+    # ppo_train_step_rnn configuration, bench.py:308-339): one warm-up step
+    # and three timed with both entries' launch counts set to 0 before and
+    # read after, then a rollout and an update timed apart
+    def train_phase_rnn():
+        tenv = mt.make(ENV_ID, device="cuda").packed()
+        tg = tenv.generator(SEED + 14)
+        model = init_params_rnn(ActorCriticRNN(
+            hidden=256, dtype=torch.bfloat16, device="cuda"), tg)
+        opt = make_optimizer(model, cfg)
+        obs, st = tenv.reset_staggered(tg, BATCH)
+        h = model.initial_state(BATCH)
+        step = make_train_step(tenv, model, cfg, opt, resets="fresh")
+        st, obs, h, _ = step(st, obs, h, tg)                # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KERNEL.launches = KERNEL.observe_launches = 0
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(3):
+            st, obs, h, m = step(st, obs, h, tg)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 3
+        launches_t = KERNEL.launches, KERNEL.observe_launches
+        if launches_t != (3 * ROLLOUT_LEN, 3 * ROLLOUT_LEN):
+            raise AssertionError(f"recurrent train steps: (step, observe) "
+                                 f"launches {launches_t}")
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        for m in metrics:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"recurrent: metrics not finite: {m}")
+            if m["reset_overflow"] != 0:
+                raise AssertionError(f"recurrent: reset_overflow {m}")
+        if not torch.isfinite(h.float()).all():
+            raise AssertionError("recurrent: the hidden state is not finite")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_buf, window = fresh_sizes(tenv, cfg)
+        noise = sample_rollout_noise(tg, None, BATCH, ROLLOUT_LEN,
+                                     model.num_actions, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, obs, traj, _, h = rollout(model, tenv, st, obs, noise, "fresh",
+                                      tg, n_buf, window, h)
+        torch.cuda.synchronize()
+        rollout_only = time.perf_counter() - t0
+        last_done = traj.done[-1]
+        if last_done.any() and bool(h[last_done].any()):
+            raise AssertionError("recurrent: a finished env kept its hidden")
+        t0 = time.perf_counter()
+        ppo_update(model, opt, cfg, traj, obs, tg, h)
+        torch.cuda.synchronize()
+        update_only = time.perf_counter() - t0
+        n_done = int(traj.done.sum())
+        noise = sample_rollout_noise(tg, None, BATCH, ROLLOUT_LEN,
+                                     model.num_actions, device="cuda")
+        profile_rollout = lambda: cuda_events(lambda: rollout(
+            model, tenv, st, obs, noise, "fresh", tg, n_buf, window, h))
+        rate = BATCH * ROLLOUT_LEN / step_s
+        print(f"train step, DoorKey-8x8 fresh resets, ActorCriticRNN: "
+              f"{rate:.0f} env-steps/s (B={BATCH}, T={ROLLOUT_LEN}, bf16 "
+              f"hidden=256; {step_s * 1e3:.1f} ms per step; apart: rollout "
+              f"{rollout_only * 1e3:.1f} ms, update {update_only * 1e3:.1f} "
+              f"ms; {launches_t[0] // 3} step + {launches_t[1] // 3} observe "
+              f"launches per step; {n_done} episodes ended in the rollout; "
+              f"peak {peak:.2f} GiB; MLP fresh in this run "
+              f"{train['fresh']['env_steps_per_s']:.0f}; host clock; {card})")
+        print(f"  metrics of the last step: {json.dumps(metrics[-1])}")
+        return {"env_steps_per_s": rate, "step_s": step_s,
+                "reset_overflow": 0, "fresh_buffer": n_buf,
+                "rollout_s": rollout_only, "update_s": update_only,
+                "timed_steps": 3, "launches": launches_t[0],
+                "observe_launches": launches_t[1],
+                "launches_per_step": launches_t[0] // 3,
+                "observe_launches_per_step": launches_t[1] // 3,
+                "peak_gib": peak, "visits": [],
+                "metrics": metrics[-1]}, profile_rollout
+
+    key = "DoorKey-8x8 fresh ActorCriticRNN"
+    train[key], profile_later[key] = train_phase_rnn()
+    torch.cuda.empty_cache()
+
     # one rotate epoch of the f32 update on the card and on the CPU, from
     # the same parameters and the same stored batch
     cfg_u = PPOConfig(num_envs=256, rollout_len=16)
@@ -1093,6 +1291,41 @@ def main() -> int:
           f"parameters moved up to {moved:.3g})")
     if not update_err <= 1e-4:
         raise AssertionError(f"card and CPU updates differ by {update_err}")
+    # the same for the recurrent update: each slab's GRU replayed from its
+    # stored start hidden, episodes ending inside the slabs
+    rnn = init_params_rnn(ActorCriticRNN(dtype=torch.float32,
+                                         device="cuda"), tg)
+    cpu_rnn = ActorCriticRNN(dtype=torch.float32, device="cpu")
+    cpu_rnn.load_state_dict({k: v.cpu() for k, v in
+                             rnn.state_dict().items()})
+    obs, st = tenv.reset_staggered(tg, 256)
+    noise = sample_rollout_noise(tg, u_pool, 256, 16, rnn.num_actions)
+    st, obs, traj, _, h = rollout(rnn, tenv, st, obs, noise,
+                                  h=rnn.initial_state(256))
+    with torch.no_grad():
+        (_, last_value), _ = rnn(obs, h)
+    adv, ret = gae(traj.reward, traj.value, traj.done, last_value,
+                   cfg_u.gamma, cfg_u.gae_lambda)
+    data = dict(traj.obs, action=traj.action, log_prob=traj.log_prob,
+                adv=adv, ret=ret, done=traj.done, hidden=traj.hidden)
+    initial = [p.detach().cpu().clone() for p in rnn.parameters()]
+    for m, d in ((rnn, data), (cpu_rnn, {k: v.cpu() for k, v in
+                                         data.items()})):
+        opt = make_optimizer(m, cfg_u)
+        for mb in epoch_minibatches(d, cfg_u, None, offset=1):
+            update_minibatch(m, opt, cfg_u, mb)
+    rnn_update_err = max((p.detach().cpu() - q.detach()).abs().max().item()
+                         for p, q in zip(rnn.parameters(),
+                                         cpu_rnn.parameters()))
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(cpu_rnn.parameters(), initial))
+    print(f"f32 recurrent update, one rotate epoch (B=256, T=16, "
+          f"{int(traj.done.sum())} episode ends): card vs CPU max abs "
+          f"parameter difference {rnn_update_err:.3g} (tolerance 1e-4; the "
+          f"parameters moved up to {moved:.3g})")
+    if not rnn_update_err <= 1e-4:
+        raise AssertionError(f"card and CPU recurrent updates differ by "
+                             f"{rnn_update_err}")
     F.gen_obs, F.step_core = plain_gen_obs, plain_step_core
 
     # --- 5. timings -----------------------------------------------------
@@ -1166,8 +1399,10 @@ def main() -> int:
     # the other families' shapes at B=4096: 25x25, 16x8, see-through,
     # 22x22, 16x16; T=1 with a reset row where the family's pooled step
     # takes one, else without (the hook path)
-    def shape_times(name, env_id, with_row):
+    def shape_times(name, env_id, with_row, view=None):
         senv = mt.make(env_id, device="cuda").packed()
+        if view is not None:
+            senv = senv.replace_params(view_size=view)
         sg = senv.generator(SEED + 9)
         sp = senv.params
         _, s0 = senv.reset(sg, BATCH)
@@ -1202,7 +1437,7 @@ def main() -> int:
         out["t1_reset_row"] = with_row
         print(f"  {name} ({sp.width}x{sp.height}, see_through_walls="
               f"{sp.see_through_walls}), B={BATCH}, "
-              f"{geometry(BATCH, sp.width, sp.height)}: T=1 "
+              f"{geometry(BATCH, sp.width, sp.height, sv)}: T=1 "
               f"{'with' if with_row else 'without'} reset row "
               f"{out['ms_t1'] * 1e3:.2f} us (bound "
               f"{out['bound_ms_t1'] * 1e3:.2f} us, plain "
@@ -1217,6 +1452,10 @@ def main() -> int:
 
     shapes = {name: shape_times(name, env_id, with_row)
               for name, env_id, with_row in SHAPES}
+    # the 64-bit view rows at B=4096: DoorKey-8x8 at V=33, MultiRoom-N6's
+    # 25x25 at V=63
+    wide_shapes = {name: shape_times(name, env_id, True, view)
+                   for name, env_id, view in WIDE_SHAPES}
 
     # generation on the card at full width: one warm-up batch, then one
     # timed batch with the loop counters set to 0 before and read after
@@ -1302,16 +1541,19 @@ def main() -> int:
 
         sst = run(sst)  # warm-up
         torch.cuda.synchronize()
-        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        KERNEL.launches = KERNEL.observe_launches = 0
+        KERNEL.wide_launches = KERNEL.wide_observe_launches = 0
         t0 = time.perf_counter()
         sst = run(sst)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        per_step = ((KERNEL.launches - l0) // ROLLOUT_LEN,
-                    (KERNEL.observe_launches - o0) // ROLLOUT_LEN)
+        per_step = (KERNEL.launches // ROLLOUT_LEN,
+                    KERNEL.observe_launches // ROLLOUT_LEN)
         res = {"env_steps_per_s": BATCH * ROLLOUT_LEN / secs,
                "launches_per_step": per_step[0],
-               "observe_launches_per_step": per_step[1]}
+               "observe_launches_per_step": per_step[1],
+               "wide_launches": KERNEL.wide_launches,
+               "wide_observe_launches": KERNEL.wide_observe_launches}
         return res, lambda: cuda_events(lambda: run(sst))
 
     stepping, profile_stepping = {}, {}
@@ -1319,13 +1561,29 @@ def main() -> int:
             ("DoorKey-8x8 pooled", ENV_ID, None),
             ("ImgObs(DoorKey-8x8) pooled", ENV_ID, WR.ImgObsWrapper),
             ("NoDeath(LavaCrossingS9N2) pooled", LAVA_ID,
-             lambda e: WR.NoDeath(e, no_death_types=("lava",)))):
+             lambda e: WR.NoDeath(e, no_death_types=("lava",))),
+            # the 64-bit view rows on a user's path: an env made with a
+            # 33-wide view (the step entry with the pooled row) and a
+            # 63-wide ViewSizeWrapper (the observe entry after each step)
+            ("DoorKey-8x8 view 33 pooled", ENV_ID,
+             lambda e: e.replace_params(view_size=33)),
+            ("ViewSize 63(DoorKey-8x8) pooled", ENV_ID,
+             lambda e: WR.ViewSizeWrapper(e, 63))):
         stepping[key], profile_stepping[key] = wrapped_stepping(env_id, wrap)
         print(f"stepping, {key}: {stepping[key]['env_steps_per_s']:.0f} "
               f"env-steps/s (B={BATCH}, T={ROLLOUT_LEN}, random actions; "
               f"{stepping[key]['launches_per_step']} step + "
               f"{stepping[key]['observe_launches_per_step']} observe "
-              f"launches a step; host clock; {card})")
+              f"launches a step, {stepping[key]['wide_launches']} + "
+              f"{stepping[key]['wide_observe_launches']} of the 64-bit "
+              f"rows; host clock; {card})")
+    wide_main = (stepping["DoorKey-8x8 view 33 pooled"]["wide_launches"],
+                 stepping["ViewSize 63(DoorKey-8x8) pooled"][
+                     "wide_observe_launches"])
+    if wide_main != (ROLLOUT_LEN, ROLLOUT_LEN):
+        raise AssertionError(f"64-bit rows: (step, observe) launches "
+                             f"{wide_main} on their paths, expected "
+                             f"{ROLLOUT_LEN} each")
 
     # pure packed stepping: one T=128 launch per chunk, the state carried
     # from chunk to chunk (host clock around the synchronised chunks)
@@ -1478,6 +1736,73 @@ def main() -> int:
     if not (last > 0.02 and last > first + 0.02):
         raise AssertionError(f"NoDeath pooled did not learn: {r}")
 
+    # the recurrent guard of JAX tests/test_learning.py:194-222: Empty-5x5
+    # packed, fresh resets, ActorCriticRNN(hidden=64) bf16, B=128, T=64,
+    # lr 1e-3, 30 train steps
+    renv = mt.make("MiniGrid-Empty-5x5-v0", device="cuda").packed()
+    rcfg = PPOConfig(num_envs=128, rollout_len=64, lr=1e-3)
+    rg = renv.generator(SEED)
+    rmodel = init_params_rnn(ActorCriticRNN(hidden=64, device="cuda"), rg)
+    ropt = make_optimizer(rmodel, rcfg)
+    obs, st = renv.reset_staggered(rg, rcfg.num_envs)
+    h = rmodel.initial_state(rcfg.num_envs)
+    rstep = make_train_step(renv, rmodel, rcfg, ropt, resets="fresh")
+    r = []
+    t0 = time.perf_counter()
+    for _ in range(30):
+        st, obs, h, m = rstep(st, obs, h, rg)
+        r.append(float(m["mean_reward"]))
+    first, last = sum(r[:5]) / 5, sum(r[-5:]) / 5
+    print(f"learning, Empty-5x5 fresh, ActorCriticRNN(hidden=64): mean "
+          f"reward first5 {first:.4f} -> last5 {last:.4f} over 30 updates "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not (last > 0.10 and last > 5 * max(first, 1e-4)):
+        raise AssertionError(f"the recurrent policy did not learn: {r}")
+
+    # the imitation pipeline of JAX tests/test_learning.py:252-272: 300 bot
+    # demos of GoToRedBallGrey generated on the card (64 seeds a batch),
+    # behaviour cloning of ActorCritic(hidden=128) for 60 epochs at batch
+    # 256, then the greedy success rate on 256 fresh episodes with the
+    # eval's cap derived from their budgets (no max_steps)
+    ienv = mt.make("BabyAI-GoToRedBallGrey-v0", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_seeds(ienv, range(16))  # each seed's layout from its own generator
+    torch.cuda.synchronize()
+    seed_reset_s = (time.perf_counter() - t0) / 16
+    l0, o0 = KERNEL.launches, KERNEL.observe_launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    demos = generate_demos(ienv, 300)
+    demo_s = time.perf_counter() - t0
+    demo_launches = (KERNEL.launches - l0, KERNEL.observe_launches - o0)
+    ig = ienv.generator(SEED)
+    bc_model = init_params(ActorCritic(hidden=128, device="cuda"), ig)
+    t0 = time.perf_counter()
+    hist = behavior_clone(bc_model, demos, epochs=60, batch_size=256,
+                          generator=ig)
+    bc_s = time.perf_counter() - t0
+    eg = ienv.generator(SEED + 8)
+    eobs, est = ienv.reset(clone_generator(eg), 256)
+    cap = episode_budget(ienv, est)
+    rate = evaluate_success(ienv, bc_model, n_episodes=256, generator=eg)
+    print(f"imitation, GoToRedBallGrey: {len(demos.length)} demos "
+          f"({int(demos.length.sum())} steps, seeds up to "
+          f"{int(demos.seed.max())}) generated on the "
+          f"card in {demo_s:.2f} s ({seed_reset_s * 1e3:.1f} ms a seed's "
+          f"B=1 reset; {demo_launches[0]} step + "
+          f"{demo_launches[1]} observe launches); behaviour cloning 60 "
+          f"epochs in {bc_s:.1f} s: loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}, accuracy {hist[-1]['accuracy']:.4f}; "
+          f"greedy success {rate:.4f} on 256 episodes, the eval's cap "
+          f"{cap} steps derived from their budgets (host clock; {card})")
+    if not hist[-1]["accuracy"] > 0.9:
+        raise AssertionError(f"behaviour cloning accuracy {hist[-1]}")
+    if not rate > 0.5:
+        raise AssertionError(f"the cloned policy's success rate {rate}")
+    if not cap < 1 << 16:
+        raise AssertionError(f"the eval's cap {cap} was not derived")
+
     main_steps = sum(t["launches"] for t in train.values())
     main_observes = sum(t["observe_launches"] for t in train.values())
     kernels = [{
@@ -1489,6 +1814,10 @@ def main() -> int:
         "launches_per_train_step": {k: t["launches_per_step"]
                                     for k, t in train.items()},
         "launches_pooled_rollout": launches,
+        # the bot's batches and the demos' (the hook path, one a step)
+        "launches_bot": {short(k): v["launches"][0]
+                         for k, v in bot_runs.items()},
+        "launches_demos": demo_launches[0],
         # the launch sites this slice added: a wrapper stack's step and
         # pooled stepping at full width, and the wrapper replays
         "launches_per_wrapped_step": {
@@ -1525,6 +1854,9 @@ def main() -> int:
         | {f"{k} (B=256 replay)": w["launches_per_step"][1]
            for k, w in wrappers.items()},
         "launches_per_frame": frame_launches,
+        "launches_bot": {short(k): v["launches"][1]
+                         for k, v in bot_runs.items()},
+        "launches_demos": demo_launches[1],
         "max_abs_err": observe_err,
         "ms": ms_o,
         "plain_ms": plain_ms_o,
@@ -1538,13 +1870,55 @@ def main() -> int:
                        "launch_geometry": v["launch_geometry"]}
                    for k, v in shapes.items()},
     }]
+    # the 64-bit-row family (views 33-63): launches on its paths (an env of
+    # view 33 pooled, a ViewSizeWrapper of 63), times at DoorKey-8x8 view 33
+    # and at MultiRoom-N6's 25x25 view 63
+    dk33 = wide_shapes["DoorKey-8x8 view 33"]
+    kernels += [{
+        "name": "fused_step (64-bit view rows)",
+        "route": "cuda",
+        "source": "minigrid_tpu_torch/csrc/fused_step.cu",
+        "replaces": "minigrid_tpu/ops/fused_step.py:58",
+        "launches": wide_main[0],
+        "max_abs_err": wide_err,
+        "ms": dk33["ms_t1"],
+        "plain_ms": dk33["plain_ms_t1"],
+        "bound_ms": dk33["bound_ms_t1"],
+        "bound_by": dk33["bound_by_t1"],
+        "library_ms": None,
+        "shapes": {k: {kk: vv for kk, vv in v.items()
+                       if not kk.startswith("observe")}
+                   for k, v in wide_shapes.items()},
+    }, {
+        "name": "fused_step_observe (64-bit view rows)",
+        "route": "cuda",
+        "source": "minigrid_tpu_torch/csrc/fused_step.cu",
+        "replaces": "minigrid_tpu/ops/fused_step.py:144",
+        "launches": wide_main[1],
+        "max_abs_err": wide_observe_err,
+        "ms": dk33["observe_ms"],
+        "plain_ms": dk33["observe_plain_ms"],
+        "bound_ms": dk33["observe_bound_ms"],
+        "bound_by": dk33["observe_bound_by"],
+        "library_ms": None,
+        "shapes": {k: {"ms": v["observe_ms"],
+                       "plain_ms": v["observe_plain_ms"],
+                       "bound_ms": v["observe_bound_ms"],
+                       "bound_by": v["observe_bound_by"],
+                       "launch_geometry": v["launch_geometry"]}
+                   for k, v in wide_shapes.items()},
+    }]
     print(json.dumps({"train_step": {k: {kk: vv for kk, vv in t.items()
                                          if kk != "metrics"}
                                      for k, t in train.items()},
                       "update_max_abs_err": update_err,
+                      "rnn_update_max_abs_err": rnn_update_err,
+                      "bot": bot_runs,
                       "generation": generated, "render": render_times,
                       "wrapped_stepping": stepping,
                       "wrappers": wrappers}))
+    print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s from the "
+          f"import of torch to the result")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,45 +17,78 @@ from minigrid_tpu_torch.core.types import (STATE_FIELDS, EnvState,
 from minigrid_tpu_torch.envs.base import LayoutPool, pool_from_states
 from minigrid_tpu_torch.wrappers import WrappedState
 
+# Flax Dense layers (kernel, bias) and bias-free ones, and plain arrays, of
+# each policy
 DENSE_LAYERS = ("img_in", "trunk1", "trunk2", "policy", "value")
+RNN_DENSE_LAYERS = ("img_in", "trunk1", "gru_x", "policy", "value")
+RNN_KERNELS = ("gru_h",)
+RNN_ARRAYS = ("mission_table", "bhn")
+
+
+def _from_flax(params_np, dense, kernels, arrays) -> dict:
+    p = params_np.get("params", params_np)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    sd = {}
+    for name in dense + kernels:
+        sd[f"{name}.weight"] = t(np.asarray(p[name]["kernel"]).T)
+        if name in dense:
+            sd[f"{name}.bias"] = t(p[name]["bias"])
+    for name in arrays:
+        sd[name] = t(p[name])
+    return sd
+
+
+def _to_flax(state_dict, dense, kernels, arrays) -> dict:
+    def arr(name):
+        return state_dict[name].detach().cpu().numpy()
+
+    p = {name: {"kernel": arr(f"{name}.weight").T.copy()}
+         for name in dense + kernels}
+    for name in dense:
+        p[name]["bias"] = arr(f"{name}.bias")
+    p.update({name: arr(name) for name in arrays})
+    return {"params": p}
 
 
 def actor_critic_from_flax(params_np) -> dict:
     """Flax ``ActorCritic`` params (the ``model.init`` tree, numpy leaves)
     -> a ``state_dict`` for ``models.actor_critic.ActorCritic``. Dense
     kernels are (in, out) in Flax and (out, in) in ``nn.Linear``."""
-    p = params_np.get("params", params_np)
-    sd = {}
-    for name in DENSE_LAYERS:
-        sd[f"{name}.weight"] = torch.tensor(
-            np.asarray(p[name]["kernel"], np.float32).T)
-        sd[f"{name}.bias"] = torch.tensor(
-            np.asarray(p[name]["bias"], np.float32))
-    sd["mission_embed"] = torch.tensor(
-        np.asarray(p["mission_embed"], np.float32))
-    return sd
+    return _from_flax(params_np, DENSE_LAYERS, (), ("mission_embed",))
 
 
 def actor_critic_to_flax(state_dict) -> dict:
     """The inverse of :func:`actor_critic_from_flax`: an ``ActorCritic``
     ``state_dict`` (or any mapping of the same names, e.g. Adam moments)
     -> the Flax ``{"params": ...}`` tree with numpy leaves."""
-    def arr(name):
-        return state_dict[name].detach().cpu().numpy()
+    return _to_flax(state_dict, DENSE_LAYERS, (), ("mission_embed",))
 
-    p = {name: {"kernel": arr(f"{name}.weight").T.copy(),
-                "bias": arr(f"{name}.bias")} for name in DENSE_LAYERS}
-    p["mission_embed"] = arr("mission_embed")
-    return {"params": p}
+
+def actor_critic_rnn_from_flax(params_np) -> dict:
+    """Flax ``ActorCriticRNN`` params (numpy leaves) -> a ``state_dict``
+    for ``models.actor_critic.ActorCriticRNN``: the dense layers, the
+    bias-free ``gru_h``, ``mission_table`` and ``bhn``."""
+    return _from_flax(params_np, RNN_DENSE_LAYERS, RNN_KERNELS, RNN_ARRAYS)
+
+
+def actor_critic_rnn_to_flax(state_dict) -> dict:
+    """The inverse of :func:`actor_critic_rnn_from_flax`."""
+    return _to_flax(state_dict, RNN_DENSE_LAYERS, RNN_KERNELS, RNN_ARRAYS)
 
 
 def adam_state_from_optax(optimizer: torch.optim.Adam, model, mu, nu,
                           count) -> torch.optim.Adam:
-    """Load optax Adam moments (``mu``, ``nu``: Flax ``ActorCritic`` trees
-    with numpy leaves; ``count``: the step count) into ``optimizer``, a
-    ``torch.optim.Adam`` over ``model.parameters()``, in place. Returns
-    the optimizer."""
-    mu_sd, nu_sd = actor_critic_from_flax(mu), actor_critic_from_flax(nu)
+    """Load optax Adam moments (``mu``, ``nu``: Flax trees of ``model``'s
+    kind, ``ActorCritic`` or ``ActorCriticRNN``, with numpy leaves;
+    ``count``: the step count) into ``optimizer``, a ``torch.optim.Adam``
+    over ``model.parameters()``, in place. Returns the optimizer."""
+    from_flax = (actor_critic_rnn_from_flax
+                 if getattr(model, "is_recurrent", False)
+                 else actor_critic_from_flax)
+    mu_sd, nu_sd = from_flax(mu), from_flax(nu)
     sd = optimizer.state_dict()
     for i, (name, p) in enumerate(model.named_parameters()):
         sd["state"][i] = {

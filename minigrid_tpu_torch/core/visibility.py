@@ -2,10 +2,12 @@
 
 Counterpart of ``minigrid_tpu/core/visibility.py``: the reference's two-pass
 sweep (``minigrid/core/grid.py:291-328``) with each view row packed into the
-low bits of one int32, so a row pass is Kogge-Stone carry propagation
-(log2(V) shift-and-or steps) and only the V-row bottom-to-top recurrence is
-sequential. Every operand is a (B,) int32 tensor. The CUDA kernel
-(``csrc/fused_step.cu``) runs the same integer recurrence per thread.
+low bits of one int32 (int64 for views wider than 31, whose rows take 33-63
+bits; the JAX package packs into int32 at every size and overflows there), so
+a row pass is Kogge-Stone carry propagation (log2(V) shift-and-or steps) and
+only the V-row bottom-to-top recurrence is sequential. Every operand is a
+(B,) integer tensor. The CUDA kernel (``csrc/fused_step.cu``) runs the same
+recurrence per thread on 32- or 64-bit rows.
 """
 
 from __future__ import annotations
@@ -54,9 +56,10 @@ def process_vis(transparent: torch.Tensor, agent_x: int) -> torch.Tensor:
     """
     V = transparent.shape[-1]
     full = (1 << V) - 1
-    bits = torch.arange(V, device=transparent.device, dtype=torch.int32)
+    dt = torch.int32 if V <= 31 else torch.int64
+    bits = torch.arange(V, device=transparent.device, dtype=dt)
     # row j packed: bit x = transparent[x, j]
-    tcols = (transparent.to(torch.int32) << bits[:, None]).sum(-2)  # (B, V)
+    tcols = (transparent.to(dt) << bits[:, None]).sum(-2)  # (B, V)
     seed = torch.full_like(tcols[:, 0], 1 << agent_x)
     rows = [None] * V
     for j in range(V - 1, -1, -1):

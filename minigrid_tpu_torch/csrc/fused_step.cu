@@ -15,8 +15,11 @@
 // view, with no transition and no state out. The auto-resets that put a
 // different state into each finished env (regenerated, per-env pool rows,
 // the fresh buffer's ranked rows) step with the first entry, select in
-// PyTorch, and observe with this one. Any odd view size 3..31 (a view row
-// is one 32-bit mask), compiled for V=7 and for V given at run time.
+// PyTorch, and observe with this one. Any odd view size 3..63: a view row
+// is one bit mask, 32-bit for V <= 31 (compiled for V=7 and for V given at
+// run time) and 64-bit for 33 <= V <= 63 (V given at run time; the largest
+// grid, 25x25, is covered from any cell by a 49-wide view, so wider views
+// add only out-of-grid cells).
 //
 // Design: a group of G lanes per env (G = 1, 2, 4, 8, 16 or 32, a template
 // parameter that the wrapper picks per launch from B and the SM count:
@@ -31,8 +34,8 @@
 // group runs the row's flood on it (uniform values, no broadcast), and the
 // row's observation words follow at once from the row's visibility, so each
 // window cell is read once. The flood is the two-pass sweep of
-// core/visibility.py on a row packed into one 32-bit mask, each pass one
-// integer add (a carry runs through a run of transparent cells; the
+// core/visibility.py on a row packed into one 32- or 64-bit mask, each pass
+// one integer add (a carry runs through a run of transparent cells; the
 // descending pass works on the bit-reversed row). The loop has no branches,
 // so the compiler issues the rows' reads ahead of their floods. The scalar
 // transition also runs on every lane of the group, and one lane writes the
@@ -70,6 +73,7 @@
 // with ctypes (minigrid_tpu_torch/ops/fused_step.py).
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -82,6 +86,8 @@ constexpr int kNScal = 8;  // x, y, dir, carrying, step_count, term, trunc, pad
 constexpr int kMaxThreads = 256;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kBadLaunch = -1;
+constexpr int kMaxNarrowView = 31;  // views up to this take 32-bit rows
+constexpr int kMaxView = 63;        // and up to this 64-bit rows
 // what a launch runs: T steps, T steps with a reset row each, or the
 // observation of the given state alone
 enum Mode { kStep, kStepReset, kObserve };
@@ -181,18 +187,31 @@ __device__ __forceinline__ unsigned group_bits(bool p, int base) {
   }
 }
 
+// A view row as a bit mask: 32 bits for views up to kMaxNarrowView, 64 for
+// wider ones, with the bit reversal of its width.
+template <bool WIDE>
+using Row = std::conditional_t<WIDE, unsigned long long, unsigned>;
+
+__device__ __forceinline__ unsigned brev_row(unsigned v) { return __brev(v); }
+__device__ __forceinline__ unsigned long long brev_row(unsigned long long v) {
+  return __brevll(v);
+}
+
 // VC: the view size when known at compile time (7, the default), else 0
-// and the view size is a.V. MODE kObserve runs one pass of the observation
-// on the state as given (a.T is 1): no transition, no state out.
-template <int G, int VC, int MODE>
+// and the view size is a.V. WIDE: the rows are 64-bit (33 <= V <= 63). MODE
+// kObserve runs one pass of the observation on the state as given (a.T is
+// 1): no transition, no state out.
+template <int G, int VC, bool WIDE, int MODE>
 __device__ __forceinline__ void run(const Args& a) {
+  using RowT = Row<WIDE>;
+  constexpr int kRowBits = WIDE ? 64 : 32;
   constexpr bool RESET = MODE == kStepReset;
   constexpr bool OBSERVE = MODE == kObserve;
   extern __shared__ uint4 smem_raw[];
   int32_t* smem = reinterpret_cast<int32_t*>(smem_raw);
   const int V = VC > 0 ? VC : a.V;
   const int hs = V / 2, VV = V * V;
-  const unsigned full = (1u << V) - 1;
+  const RowT full = (RowT(1) << V) - 1;
   const int lg = threadIdx.x & (G - 1);          // lane within the group
   const int base = (threadIdx.x & 31) & ~(G - 1);  // group's first warp lane
   const int slot = threadIdx.x / G;              // env within the block
@@ -239,7 +258,8 @@ __device__ __forceinline__ void run(const Args& a) {
   };
   int acts = load_actions(0), next_acts = load_actions(G);
   // view cells (vx, j) of a row j that this lane reads: vx = lg + i*G
-  constexpr int kIter = ((VC > 0 ? VC : 31) + G - 1) / G;
+  constexpr int kIter =
+      ((VC > 0 ? VC : (WIDE ? kMaxView : kMaxNarrowView)) + G - 1) / G;
 
   for (int t = 0; t < T; ++t) {
     if constexpr (!OBSERVE) {
@@ -340,12 +360,12 @@ __device__ __forceinline__ void run(const Args& a) {
     // cell (vx, j)), every lane runs the row's flood on it, and the row's
     // observation words follow from the row's visibility. No branches, so
     // the unrolled rows' reads go ahead of the floods.
-    unsigned seed = 1u << hs;
+    RowT seed = RowT(1) << hs;
 #pragma unroll
     for (int j = V - 1; j >= 0; --j) {
       const int rx = tlx - ofx * j, ry = tly - ofy * j;  // view cell (0, j)
       int u[kIter];
-      unsigned tb = 0;
+      RowT tb = 0;
 #pragma unroll
       for (int i = 0; i < kIter; ++i) {
         if (i * G < V) {
@@ -356,29 +376,29 @@ __device__ __forceinline__ void run(const Args& a) {
           int c = kWallPacked;  // out of the grid: a grey wall
           if (in) c = g[wx * H + wy];
           u[i] = c;
-          tb |= group_bits<G>(c & kClear, base) << (i * G);
+          tb |= RowT(group_bits<G>(c & kClear, base)) << (i * G);
         }
       }
       // visibility on the raw window (before the overlay).
       // pass 1, ascending x: m[i] = seed[i] | (m[i-1] & t[i-1]). A seed runs
       // up through the transparent cells above it: adding its first step
       // `up` to the run's mask P carries through the run and clears it.
-      const unsigned P = (tb << 1) & full;
-      const unsigned up = (seed << 1) & P;
-      const unsigned m1 = seed | up | (P & ~(P + up));
+      const RowT P = (tb << 1) & full;
+      const RowT up = (seed << 1) & P;
+      const RowT m1 = seed | up | (P & ~(P + up));
       // pass 2, descending x: m[i] |= m[i+1] & t[i+1], the same on the
       // bit-reversed row
-      const int rev = 32 - V;
-      const unsigned rP = ((__brev(tb) >> rev) << 1) & full;
-      const unsigned rm = __brev(m1) >> rev;
-      const unsigned rup = (rm << 1) & rP;
-      const unsigned m2 = __brev(rm | rup | (rP & ~(rP + rup))) >> rev;
+      const int rev = kRowBits - V;
+      const RowT rP = ((brev_row(tb) >> rev) << 1) & full;
+      const RowT rm = brev_row(m1) >> rev;
+      const RowT rup = (rm << 1) & rP;
+      const RowT m2 = brev_row(RowT(rm | rup | (rP & ~(rP + rup)))) >> rev;
       // seeds of the row above: a visited transparent cell marks the cell
       // above it and that cell's left/right neighbour
-      const unsigned e = m1 & tb & (full >> 1);
-      const unsigned f = m2 & tb & (full ^ 1);
+      const RowT e = m1 & tb & (full >> 1);
+      const RowT f = m2 & tb & (full ^ 1);
       seed = (e | ((e << 1) & full)) | (f | (f >> 1));
-      const unsigned m = a.see_through ? full : m2;
+      const RowT m = a.see_through ? full : m2;
 #pragma unroll
       for (int i = 0; i < kIter; ++i) {
         const int vx = i * G + lg;
@@ -427,22 +447,22 @@ __device__ __forceinline__ void run(const Args& a) {
   }
 }
 
-template <int G, int VC, bool RESET>
+template <int G, int VC, bool WIDE, bool RESET>
 __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
-  run<G, VC, RESET ? kStepReset : kStep>(a);
+  run<G, VC, WIDE, RESET ? kStepReset : kStep>(a);
 }
 
-template <int G, int VC>
+template <int G, int VC, bool WIDE>
 __global__ void __launch_bounds__(kMaxThreads) fused_observe_kernel(Args a) {
-  run<G, VC, kObserve>(a);
+  run<G, VC, WIDE, kObserve>(a);
 }
 
-template <int G, int VC, int MODE>
+template <int G, int VC, bool WIDE, int MODE>
 int launch(const Args& a, cudaStream_t stream) {
   const Layout L(a.W * a.H, a.V, a.envs);
   void (*kernel)(Args);
-  if constexpr (MODE == kObserve) kernel = fused_observe_kernel<G, VC>;
-  else kernel = fused_step_kernel<G, VC, MODE == kStepReset>;
+  if constexpr (MODE == kObserve) kernel = fused_observe_kernel<G, VC, WIDE>;
+  else kernel = fused_step_kernel<G, VC, WIDE, MODE == kStepReset>;
   if (L.bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
@@ -455,7 +475,9 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <int G, int MODE>
 int by_view(const Args& a, cudaStream_t s) {
-  return a.V == 7 ? launch<G, 7, MODE>(a, s) : launch<G, 0, MODE>(a, s);
+  if (a.V == 7) return launch<G, 7, false, MODE>(a, s);
+  if (a.V <= kMaxNarrowView) return launch<G, 0, false, MODE>(a, s);
+  return launch<G, 0, true, MODE>(a, s);
 }
 
 template <int MODE>
@@ -473,7 +495,7 @@ int dispatch(const Args& a, cudaStream_t s) {
 
 bool bad_geometry(int view_size, int group_lanes, int envs_per_block) {
   const int threads = envs_per_block * group_lanes;
-  return view_size < 3 || view_size > 31 || view_size % 2 == 0 ||
+  return view_size < 3 || view_size > kMaxView || view_size % 2 == 0 ||
          envs_per_block < 1 || threads % 32 != 0 || threads > kMaxThreads;
 }
 
@@ -482,7 +504,7 @@ bool bad_geometry(int view_size, int group_lanes, int envs_per_block) {
 extern "C" {
 
 // Launches on `stream` and returns 0, -1 for a view size or launch
-// geometry the kernel does not take (view size odd 3..31; G lanes per env
+// geometry the kernel does not take (view size odd 3..63; G lanes per env
 // a power of two up to 32; envs_per_block * G a multiple of 32, at most
 // 256), or the CUDA error of the launch. Shared memory above 48 KB per
 // block is opted into (up to the card's limit).

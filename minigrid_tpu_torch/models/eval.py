@@ -3,7 +3,9 @@
 Counterpart of ``minigrid_tpu/models/eval.py``. N fresh episodes run to
 completion under the greedy (argmax) policy, batched; an episode succeeds
 when it terminates with a positive reward (timeouts and lava deaths fail).
-Finished episodes freeze, so each is counted once.
+Finished episodes freeze, so each is counted once. A recurrent policy
+(``model.is_recurrent``) carries its hidden state from
+``model.initial_state(n)`` through every step.
 
     from minigrid_tpu_torch.models.eval import evaluate_success
     rate = evaluate_success(env, model, n_episodes=1024)
@@ -22,7 +24,9 @@ def evaluate_success(env, model, n_episodes: int = 1024,
                      require_all_done: bool = True) -> float:
     """Fraction of ``n_episodes`` fresh episodes (``env.reset`` from
     ``generator``, seed 0 by default) that the greedy policy solves within
-    ``max_steps`` (the env's budget by default). With ``require_all_done``
+    ``max_steps`` (the env's budget by default; on a dynamic-budget level,
+    whose ``params.max_steps`` is a sentinel, the largest budget of the
+    batch). With ``require_all_done``
     it raises when an episode is still running at the end of the budget,
     which would otherwise count as a failure."""
     if generator is None:
@@ -30,6 +34,17 @@ def evaluate_success(env, model, n_episodes: int = 1024,
     obs, state = env.reset(generator, n_episodes)
     return evaluate_success_from(env, model, obs, state, max_steps,
                                  require_all_done, generator)
+
+
+def episode_budget(env, state, max_steps: int | None = None) -> int:
+    """The steps an evaluation of ``state`` runs: ``max_steps``, else the
+    env's budget; above 2^16 (the 2^30 sentinel of a dynamic-budget level,
+    e.g. BabyAI, which keeps each episode's budget in
+    ``extra["max_steps"]``), the batch's largest budget."""
+    T = max_steps or int(env.params.max_steps)
+    if T > 1 << 16:
+        T = int(state.extra["max_steps"].max())
+    return T
 
 
 @torch.no_grad()
@@ -41,9 +56,11 @@ def evaluate_success_from(env, model, obs: dict, state,
     e.g. states exported from the JAX package. The step keys, which only
     an env with in-step randomness reads (Dynamic-Obstacles), are drawn
     from ``generator`` every step, or zero without one."""
-    T = max_steps or int(env.params.max_steps)
+    T = episode_budget(env, state, max_steps)
     B = state.batch_size
     dev = state.device
+    recurrent = getattr(model, "is_recurrent", False)
+    h = model.initial_state(B) if recurrent else None
     keys = torch.zeros((B, 2), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     success = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -52,7 +69,10 @@ def evaluate_success_from(env, model, obs: dict, state,
         return done.reshape((-1,) + (1,) * (x.ndim - 1))
 
     for _ in range(T):
-        logits, _ = model(obs)
+        if recurrent:
+            (logits, _), h = model(obs, h)
+        else:
+            logits, _ = model(obs)
         action = torch.argmax(logits, dim=-1)
         if generator is not None:
             keys = random_keys(generator, (B, 2), dev)

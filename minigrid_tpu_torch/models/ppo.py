@@ -26,6 +26,14 @@ clip-norm rule and Adam. ``make_train_step`` returns
 ``train_step(env_state, obs, generator, pool=None) -> (env_state, obs,
 metrics)``, which updates the model and the optimizer in place; metrics stay
 device tensors until the caller reads them.
+
+A recurrent policy (``model.is_recurrent``, ``ActorCriticRNN``) threads its
+hidden state ``h``: the rollout stores the ``h`` fed into each step and
+zeroes it in finished envs after the step; the update replays each rotate
+slab's GRU from the hidden stored at the slab's first step, re-zeroed at
+the slab's episode ends (truncated backpropagation through time), so it
+needs ``shuffle="rotate"``; the train step becomes ``train_step(env_state,
+obs, h, generator, pool=None) -> (env_state, obs, h, metrics)``.
 """
 
 from __future__ import annotations
@@ -44,8 +52,9 @@ from minigrid_tpu_torch.wrappers import Wrapper
 RESET_MODES = ("regen", "pooled", "fresh")
 SHUFFLES = ("rotate", "timestep", "sample")
 OBS_KEYS = ("img_feat", "mission_counts", "direction")
-# a minibatch's entries besides the stored observations
-TRAJ_KEYS = ("action", "log_prob", "adv", "ret")
+# a minibatch's entries besides the stored observations (a recurrent
+# policy's also hold "done" and "hidden")
+TRAJ_KEYS = ("action", "log_prob", "adv", "ret", "done", "hidden")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +86,12 @@ class Transition(NamedTuple):
     value: torch.Tensor
     reward: torch.Tensor
     done: torch.Tensor
+    # recurrent policies: the hidden state fed into each step
+    hidden: torch.Tensor | None = None
+
+
+def is_recurrent(model) -> bool:
+    return bool(getattr(model, "is_recurrent", False))
 
 
 def _selected_log_prob(log_probs, action):
@@ -132,7 +147,8 @@ def fresh_sizes(env, cfg: PPOConfig,
 @torch.no_grad()
 def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
             resets: str = "pooled", generator: torch.Generator | None = None,
-            fresh_buffer: int | None = None, fresh_window: int = 32):
+            fresh_buffer: int | None = None, fresh_window: int = 32,
+            h: torch.Tensor | None = None):
     """T = noise.gumbel.shape[0] policy steps of every env.
 
     ``resets``: "pooled" takes ``noise.reset_rows``; "fresh" generates a
@@ -142,7 +158,10 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
     reset_overflow)``: ``traj`` is a :class:`Transition` of (T, B, ...)
     tensors, ``traj.obs`` the encoded observations the policy saw, and
     ``reset_overflow`` the fresh mode's degraded resets summed over the
-    rollout (a device int32 scalar, 0 in the other modes)."""
+    rollout (a device int32 scalar, 0 in the other modes). A recurrent
+    ``model`` takes the hidden state ``h`` (B, H), stores each step's input
+    hidden in ``traj.hidden``, zeroes it where an episode ended, and
+    returns it as a fifth value."""
     if resets not in RESET_MODES:
         raise ValueError(f"resets must be one of {RESET_MODES}, got "
                          f"{resets!r}")
@@ -167,6 +186,10 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
     if resets == "fresh":
         buffer = env.presample_fresh(generator, fresh_buffer)
         cursor = torch.zeros((), dtype=torch.int32, device=dev)
+    recurrent = is_recurrent(model)
+    if recurrent and h is None:
+        raise ValueError("a recurrent policy's rollout needs its hidden "
+                         "state h")
     steps = []
     for t in range(T):
         if carry:
@@ -177,7 +200,11 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
             enc = encode_obs(obs)
         else:
             enc = obs
-        logits, value = model(enc)
+        if recurrent:
+            h_in = h
+            (logits, value), h = model(enc, h)
+        else:
+            logits, value = model(enc)
         action = torch.argmax(logits + noise.gumbel[t], dim=-1)
         log_prob = _selected_log_prob(torch.log_softmax(logits, -1), action)
         keys = noise.step_keys[t]
@@ -197,15 +224,21 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
         if carry:
             counts = torch.where(done[:, None], reset_counts[t][None],
                                  counts)
+        if recurrent:
+            # the next step's forward starts a new episode from h = 0
+            h = h * (1.0 - done[:, None].to(h.dtype))
         steps.append(Transition(enc, action.to(torch.int32), log_prob, value,
-                                reward, done))
+                                reward, done, h_in if recurrent else None))
     if isinstance(steps[0].obs, dict):
         traj_obs = {k: torch.stack([s.obs[k] for s in steps])
                     for k in steps[0].obs}
     else:
         traj_obs = torch.stack([s.obs for s in steps])
-    traj = Transition(traj_obs,
-                      *(torch.stack(f) for f in list(zip(*steps))[1:]))
+    traj = Transition(traj_obs, *(
+        torch.stack(f) if f[0] is not None else None
+        for f in list(zip(*steps))[1:]))
+    if recurrent:
+        return env_state, obs, traj, overflow, h
     return env_state, obs, traj, overflow
 
 
@@ -233,12 +266,32 @@ def policy_input(mb: dict):
     return {k: v for k, v in mb.items() if k not in TRAJ_KEYS}
 
 
+def replay_slab(model, mb: dict):
+    """A recurrent policy's (logits, value) over a (mbt, B) slab: the
+    inputs encoded over the whole slab, the GRU run step by step from the
+    hidden stored at the slab's first step (``mb["hidden"][0]``) and
+    zeroed after each step where an episode ended, the heads on the
+    stacked outputs. Gradients flow through the whole loop."""
+    xz = model.encode_inputs(policy_input(mb))
+    h = mb["hidden"][0]
+    outs = []
+    for t in range(xz.shape[0]):
+        h_new = model.gru_step(xz[t], h)
+        outs.append(h_new)
+        h = h_new * (1.0 - mb["done"][t][:, None].to(h_new.dtype))
+    return model.heads(torch.stack(outs))
+
+
 def ppo_loss(model, cfg: PPOConfig, mb: dict):
     """The clipped-surrogate loss of one minibatch (a dict of the stored
-    observations, action, log_prob, adv and ret over any leading shape);
-    the advantage is normalised over the minibatch. Returns (total,
-    metrics) with detached metrics."""
-    logits, value = model(policy_input(mb))
+    observations, action, log_prob, adv and ret over any leading shape;
+    for a recurrent policy a (mbt, B) slab with its done and hidden, see
+    :func:`replay_slab`); the advantage is normalised over the minibatch.
+    Returns (total, metrics) with detached metrics."""
+    if is_recurrent(model):
+        logits, value = replay_slab(model, mb)
+    else:
+        logits, value = model(policy_input(mb))
     log_probs = torch.log_softmax(logits, -1)
     lp = _selected_log_prob(log_probs, mb["action"])
     ratio = torch.exp(lp - mb["log_prob"])
@@ -322,19 +375,29 @@ def epoch_minibatches(data: dict, cfg: PPOConfig,
 
 
 def ppo_update(model, optimizer, cfg: PPOConfig, traj: Transition,
-               last_obs: dict, generator: torch.Generator) -> dict:
+               last_obs: dict, generator: torch.Generator,
+               h: torch.Tensor | None = None) -> dict:
     """The update phase of a train step: GAE bootstrapped from the value of
-    ``last_obs``, then ``cfg.num_epochs`` passes over the minibatches of
+    ``last_obs`` (for a recurrent policy, with the rollout's final hidden
+    state ``h``), then ``cfg.num_epochs`` passes over the minibatches of
     ``traj``, updating ``model`` and ``optimizer`` in place. Returns the
     loss metrics averaged over the minibatches and ``mean_reward``, as
     device scalars."""
+    recurrent = is_recurrent(model)
     with torch.no_grad():
-        _, last_value = model(last_obs)
+        if recurrent:
+            (_, last_value), _ = model(last_obs, h)
+        else:
+            _, last_value = model(last_obs)
     adv, ret = gae(traj.reward, traj.value, traj.done, last_value,
                    cfg.gamma, cfg.gae_lambda)
     obs = traj.obs if isinstance(traj.obs, dict) else {"obs": traj.obs}
     data = dict(obs, action=traj.action, log_prob=traj.log_prob, adv=adv,
                 ret=ret)
+    if recurrent:
+        # a rotate slab is a view of these: its start hidden is the stored
+        # hidden of its first step, traj.hidden[j * mbt] for slab j
+        data.update(done=traj.done, hidden=traj.hidden)
     per_mb = [update_minibatch(model, optimizer, cfg, mb)
               for _ in range(cfg.num_epochs)
               for mb in epoch_minibatches(data, cfg, generator)]
@@ -344,11 +407,16 @@ def ppo_update(model, optimizer, cfg: PPOConfig, traj: Transition,
     return metrics
 
 
-def check_config(cfg: PPOConfig) -> None:
-    """Raise ``ValueError`` for a shuffle the rollout shape cannot cut."""
+def check_config(cfg: PPOConfig, recurrent: bool = False) -> None:
+    """Raise ``ValueError`` for a shuffle the rollout shape cannot cut, or
+    that a recurrent policy cannot replay (it needs contiguous timestep
+    slabs: "rotate")."""
     if cfg.shuffle not in SHUFFLES:
         raise ValueError(f"shuffle must be one of {SHUFFLES}, got "
                          f"{cfg.shuffle!r}")
+    if recurrent and cfg.shuffle != "rotate":
+        raise ValueError("recurrent training needs contiguous timestep "
+                         f"slabs: shuffle='rotate' (got {cfg.shuffle!r})")
     if cfg.shuffle in ("rotate", "timestep"):
         if cfg.rollout_len % cfg.num_minibatches:
             raise ValueError(
@@ -372,24 +440,25 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
     and ``optimizer`` in place. ``metrics`` holds device scalars: the loss
     terms averaged over the minibatches, ``mean_reward`` and, with fresh
     resets, ``reset_overflow`` summed over the rollout. ``fresh_buffer``
-    overrides the fresh buffer's size (:func:`fresh_sizes`)."""
-    if getattr(model, "is_recurrent", False):
-        raise NotImplementedError(
-            "recurrent policies are not ported yet (ROADMAP Queue 1 item 14)")
+    overrides the fresh buffer's size (:func:`fresh_sizes`). For a
+    recurrent ``model`` it is ``train_step(env_state, obs, h, generator,
+    pool=None) -> (env_state, obs, h, metrics)``, ``h`` the hidden state
+    carried across train steps (``model.initial_state(num_envs)`` at
+    first)."""
+    recurrent = is_recurrent(model)
     if resets is None:
         resets = "pooled" if pooled else "regen"
     if resets not in RESET_MODES:
         raise ValueError(f"resets must be one of {RESET_MODES}, got "
                          f"{resets!r}")
-    check_config(cfg)
+    check_config(cfg, recurrent)
     if resets in ("pooled", "fresh") and isinstance(env, Wrapper):
         # the model must take the stack's observations
         env.check_fast_paths()
     n_buf, window = (fresh_sizes(env, cfg, fresh_buffer)
                      if resets == "fresh" else (None, 32))
 
-    def train_step(env_state, obs, generator: torch.Generator,
-                   pool: LayoutPool | None = None):
+    def step(env_state, obs, h, generator, pool):
         if env_state.batch_size != cfg.num_envs:
             raise ValueError(f"env_state holds {env_state.batch_size} envs, "
                              f"cfg.num_envs is {cfg.num_envs}")
@@ -398,13 +467,25 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
         noise = sample_rollout_noise(
             generator, pool if resets == "pooled" else None, cfg.num_envs,
             cfg.rollout_len, model.num_actions, device=env_state.device)
-        env_state, obs, traj, overflow = rollout(
-            model, env, env_state, obs, noise, resets, generator, n_buf,
-            window)
-        metrics = ppo_update(model, optimizer, cfg, traj, obs, generator)
+        out = rollout(model, env, env_state, obs, noise, resets, generator,
+                      n_buf, window, h)
+        env_state, obs, traj, overflow = out[:4]
+        h = out[4] if recurrent else None
+        metrics = ppo_update(model, optimizer, cfg, traj, obs, generator, h)
         if resets == "fresh":
             metrics["reset_overflow"] = overflow
-        return env_state, obs, metrics
+        return env_state, obs, h, metrics
+
+    if recurrent:
+        def train_step(env_state, obs, h, generator: torch.Generator,
+                       pool: LayoutPool | None = None):
+            return step(env_state, obs, h, generator, pool)
+    else:
+        def train_step(env_state, obs, generator: torch.Generator,
+                       pool: LayoutPool | None = None):
+            env_state, obs, _, metrics = step(env_state, obs, None,
+                                              generator, pool)
+            return env_state, obs, metrics
 
     return train_step
 
@@ -413,9 +494,27 @@ def make_train_loop(env, model, cfg: PPOConfig, optimizer,
                     steps_per_call: int = 8, **kw):
     """``steps_per_call`` train steps per call: ``train_loop(env_state,
     obs, generator, pool=None) -> (env_state, obs, metrics)`` with each
-    metric stacked (K,). With pooled resets the same pool serves all K
-    steps. Keyword arguments go to :func:`make_train_step`."""
+    metric stacked (K,); for a recurrent model ``train_loop(env_state, obs,
+    h, generator, pool=None) -> (env_state, obs, h, metrics)``. With pooled
+    resets the same pool serves all K steps. Keyword arguments go to
+    :func:`make_train_step`."""
     step = make_train_step(env, model, cfg, optimizer, **kw)
+
+    def stacked(per_step):
+        return {k: torch.stack([m[k] for m in per_step])
+                for k in per_step[0]}
+
+    if is_recurrent(model):
+        def train_loop(env_state, obs, h, generator: torch.Generator,
+                       pool: LayoutPool | None = None):
+            per_step = []
+            for _ in range(steps_per_call):
+                env_state, obs, h, m = step(env_state, obs, h, generator,
+                                            pool)
+                per_step.append(m)
+            return env_state, obs, h, stacked(per_step)
+
+        return train_loop
 
     def train_loop(env_state, obs, generator: torch.Generator,
                    pool: LayoutPool | None = None):
@@ -423,7 +522,6 @@ def make_train_loop(env, model, cfg: PPOConfig, optimizer,
         for _ in range(steps_per_call):
             env_state, obs, m = step(env_state, obs, generator, pool)
             per_step.append(m)
-        return env_state, obs, {k: torch.stack([m[k] for m in per_step])
-                                for k in per_step[0]}
+        return env_state, obs, stacked(per_step)
 
     return train_loop

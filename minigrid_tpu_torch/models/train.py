@@ -5,6 +5,8 @@ observations, a staggered batch, pooled, fresh or regen auto-resets with
 pool refreshes between train steps, ``steps_per_call`` train steps per call
 (``make_train_loop``), periodic checkpoints (``utils/checkpoint.py``) and a
 metrics history. Metrics are read on the host only at the logging points.
+With ``recurrent`` the policy is an ``ActorCriticRNN`` whose hidden state
+threads across train steps (``shuffle="rotate"``, the default, required).
 
     from minigrid_tpu_torch.models.train import TrainConfig, train
     model, history = train("MiniGrid-DoorKey-8x8-v0",
@@ -21,7 +23,10 @@ import minigrid_tpu_torch
 from minigrid_tpu_torch.core.types import resolve_device
 from minigrid_tpu_torch.envs.base import (make_layout_pool,
                                           refresh_layout_pool)
-from minigrid_tpu_torch.models.actor_critic import ActorCritic, init_params
+from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
+                                                    ActorCriticRNN,
+                                                    init_params,
+                                                    init_params_rnn)
 from minigrid_tpu_torch.models.ppo import (PPOConfig, make_optimizer,
                                            make_train_loop, make_train_step)
 from minigrid_tpu_torch.utils.checkpoint import save_pytree
@@ -36,7 +41,7 @@ class TrainConfig:
     hidden: int = 256
     seed: int = 0
     packed_obs: bool = True
-    recurrent: bool = False          # not ported (ROADMAP Queue 1 item 14)
+    recurrent: bool = False          # ActorCriticRNN, hidden state threaded
     # None -> "pooled" if pool_size > 0 else "regen"
     resets: str | None = None
     fresh_buffer: int | None = None  # override for dynamic-budget envs
@@ -52,12 +57,9 @@ class TrainConfig:
 def train(env_id: str, cfg: TrainConfig = TrainConfig(),
           log_fn: Callable[[dict], None] | None = None, device=None):
     """Run PPO to ``total_env_steps`` on ``device`` (the card by default).
-    Returns (model, history): the trained :class:`ActorCritic` and the
-    logged metrics (floats, with ``update``, ``env_steps`` and
-    ``env_steps_per_s``)."""
-    if cfg.recurrent:
-        raise NotImplementedError(
-            "recurrent training is not ported yet (ROADMAP Queue 1 item 14)")
+    Returns (model, history): the trained :class:`ActorCritic` (or
+    :class:`ActorCriticRNN` with ``cfg.recurrent``) and the logged metrics
+    (floats, with ``update``, ``env_steps`` and ``env_steps_per_s``)."""
     if cfg.devices > 1:
         raise NotImplementedError(
             "multi-GPU training is not ported yet (ROADMAP Queue 1 item 15)")
@@ -67,8 +69,10 @@ def train(env_id: str, cfg: TrainConfig = TrainConfig(),
         env = env.packed()
     pcfg = cfg.ppo
     g = env.generator(cfg.seed)
-    model = init_params(ActorCritic(view_size=env.params.view_size,
-                                    hidden=cfg.hidden, device=dev), g)
+    cls, init = ((ActorCriticRNN, init_params_rnn) if cfg.recurrent
+                 else (ActorCritic, init_params))
+    model = init(cls(view_size=env.params.view_size, hidden=cfg.hidden,
+                     device=dev), g)
     optimizer = make_optimizer(model, pcfg)
 
     resets = cfg.resets or ("pooled" if cfg.pool_size > 0 else "regen")
@@ -85,12 +89,16 @@ def train(env_id: str, cfg: TrainConfig = TrainConfig(),
                   make_train_step(env, model, pcfg, optimizer, **kw))
 
     obs, st = env.reset_staggered(g, pcfg.num_envs)
+    h = model.initial_state(pcfg.num_envs) if cfg.recurrent else None
     steps_per_update = pcfg.num_envs * pcfg.rollout_len * K
     num_updates = max(1, cfg.total_env_steps // steps_per_update)
     history = []
     t0 = time.perf_counter()
     for u in range(num_updates):
-        st, obs, m = train_step(st, obs, g, pool)
+        if cfg.recurrent:
+            st, obs, h, m = train_step(st, obs, h, g, pool)
+        else:
+            st, obs, m = train_step(st, obs, g, pool)
         if K > 1:  # metrics stacked (K,): report the last step's
             m = {k: v[-1] for k, v in m.items()}
         if pooled and (u + 1) % cfg.pool_refresh_every == 0:

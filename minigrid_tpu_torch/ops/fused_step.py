@@ -43,7 +43,9 @@ from minigrid_tpu_torch.core.step import step_core
 from minigrid_tpu_torch.core.types import EnvParams, EnvState
 
 NSCAL = 8  # x, y, dir, carrying, step_count, terminated, truncated, pad
-MIN_VIEW, MAX_VIEW = 3, 31  # odd view sizes the kernel takes (32-bit rows)
+# odd view sizes the kernel takes: 32-bit view rows up to NARROW_VIEW,
+# 64-bit ones (an instantiation family of their own) beyond, up to MAX_VIEW
+MIN_VIEW, NARROW_VIEW, MAX_VIEW = 3, 31, 63
 GROUP_LANES = (1, 2, 4, 8, 16, 32)  # lanes per env the kernel is built for
 MAX_THREADS = 256  # threads per block (csrc/fused_step.cu kMaxThreads)
 # G is raised until the batch gives every SM this many warps: one for each
@@ -187,11 +189,16 @@ def fused_rollout_reference(params: EnvParams, states: EnvState,
 class FusedStepKernel:
     """The compiled library, built and loaded at first use, and the counts
     of its launches: ``launches`` of the step entry, ``observe_launches`` of
-    the observe entry (plain ints that only the launches add to)."""
+    the observe entry, and of those the launches at views wider than
+    :data:`NARROW_VIEW` (the 64-bit-row family), ``wide_launches`` and
+    ``wide_observe_launches`` (plain ints that only the launches add
+    to)."""
 
     def __init__(self):
         self.launches = 0
         self.observe_launches = 0
+        self.wide_launches = 0
+        self.wide_observe_launches = 0
         self.build_log = ""
         self._lib = None
 
@@ -395,6 +402,7 @@ def _fused_rollout_cuda(params, states, actions, native_layout, reset_grid,
         msg = lib.fused_step_error_string(code).decode()
         raise RuntimeError(f"fused_step kernel launch failed: {msg}")
     KERNEL.launches += 1
+    KERNEL.wide_launches += V > NARROW_VIEW
     return out, obs, reward, term, trunc
 
 
@@ -426,6 +434,7 @@ def _fused_observe_cuda(params, states, group_lanes: int | None = None):
         msg = lib.fused_step_error_string(code).decode()
         raise RuntimeError(f"fused_observe kernel launch failed: {msg}")
     KERNEL.observe_launches += 1
+    KERNEL.wide_observe_launches += V > NARROW_VIEW
     return obs
 
 

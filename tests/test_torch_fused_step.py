@@ -195,10 +195,10 @@ def test_shared_memory_and_build_flags():
     env = minigrid_tpu_torch.make("MiniGrid-Empty-8x8-v0", device=CPU)
     _, st = env.reset(env.generator(0), 2)
     with pytest.raises(ValueError, match="view size"):
-        F._fused_rollout_cuda(env.replace_params(view_size=33).params, st,
+        F._fused_rollout_cuda(env.replace_params(view_size=65).params, st,
                               torch.zeros((1, 2), dtype=torch.int32), False,
                               None, None)
-    for bad in (8, 33, 1):
+    for bad in (8, 65, 1):
         with pytest.raises(ValueError, match="view size"):
             F.check_view_size(bad)
         with pytest.raises(ValueError, match="view size"):
@@ -213,12 +213,13 @@ def test_shared_memory_and_build_flags():
 
 @pytest.mark.parametrize("group_lanes", [None, *F.GROUP_LANES])
 def test_launch_geometry_fits_every_env_and_view(group_lanes):
-    """Every registered env at every odd view size 3..31: a valid block
+    """Every registered env at every odd view size 3..63: a valid block
     (whole warps, at most MAX_THREADS threads) under the shared-memory
     limit, covering the batch. A G given explicitly raises exactly where
-    one warp of its envs exceeds the limit (G=1 at views of 21 or more on
-    the largest grids: BabyAI's 20x20 room and 22x22 mazes, MultiRoom's
-    25x25); the picked G always fits."""
+    one warp of its envs exceeds the limit (G=1 from a view of 21 on
+    MultiRoom's 25x25, 27 on BabyAI's 22x22 mazes, 31 on the 20x20 room
+    and 33-43 on the other grids; G=2 from 49-61); the picked G always
+    fits."""
     sizes = set()
     for env_id in minigrid_tpu_torch.registered_ids():
         p = minigrid_tpu_torch.make(env_id, device=CPU).params
@@ -226,7 +227,7 @@ def test_launch_geometry_fits_every_env_and_view(group_lanes):
     assert {(25, 25), (22, 22), (16, 8)} <= sizes
     over = set()
     for w, h in sorted(sizes):
-        for v in range(3, 32, 2):
+        for v in range(3, 64, 2):
             for batch in (1, 1001, 4096, 65536):
                 if group_lanes is not None and F.shared_memory_bytes(
                         w * h, v, 32 // group_lanes) > F.SMEM_LIMIT:
@@ -243,10 +244,25 @@ def test_launch_geometry_fits_every_env_and_view(group_lanes):
                 assert geo.threads <= F.MAX_THREADS
                 assert geo.blocks * geo.envs_per_block >= batch
                 assert (geo.blocks - 1) * geo.envs_per_block < batch
-    want = set()
-    if group_lanes == 1:
-        want = {(20, 20, 31), *((22, 22, v) for v in (27, 29, 31)),
-                *((25, 25, v) for v in range(21, 32, 2))}
+    # the first view that one warp of G=1 or G=2 envs cannot hold, per grid
+    first = {
+        1: {(4, 4): 43, (5, 5): 43, (6, 6): 43, (7, 3): 43, (7, 4): 43,
+            (7, 5): 43, (7, 7): 43, (8, 8): 41, (9, 5): 43, (9, 7): 41,
+            (9, 9): 41, (10, 10): 41, (11, 6): 41, (11, 11): 41,
+            (12, 6): 41, (12, 12): 39, (13, 7): 41, (13, 9): 41,
+            (13, 13): 39, (15, 8): 41, (16, 6): 41, (16, 8): 41,
+            (16, 16): 37, (17, 17): 35, (19, 19): 33, (20, 20): 31,
+            (22, 22): 27, (25, 25): 21},
+        2: {(4, 4): 61, (5, 5): 61, (6, 6): 61, (7, 3): 61, (7, 4): 61,
+            (7, 5): 61, (7, 7): 61, (8, 8): 61, (9, 5): 61, (9, 7): 61,
+            (9, 9): 59, (10, 10): 59, (11, 6): 61, (11, 11): 59,
+            (12, 6): 59, (12, 12): 59, (13, 7): 59, (13, 9): 59,
+            (13, 13): 59, (15, 8): 59, (16, 6): 59, (16, 8): 59,
+            (16, 16): 57, (17, 17): 55, (19, 19): 55, (20, 20): 53,
+            (22, 22): 51, (25, 25): 49}}.get(group_lanes, {})
+    assert set(first) <= sizes
+    want = {(w, h, v) for (w, h), v0 in first.items()
+            for v in range(v0, 64, 2)}
     assert over == want
 
 

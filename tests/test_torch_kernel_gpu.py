@@ -1,5 +1,6 @@
 """The CUDA fused step kernel and its observe entry against their plain
-PyTorch versions on the card, bit-exact on every output. Marked ``gpu``: they skip without a CUDA
+PyTorch versions on the card, bit-exact on every output, and the recurrent
+policy's forward card against CPU. Marked ``gpu``: they skip without a CUDA
 device. The file imports no JAX, so it also runs where only PyTorch is
 installed (``pytest tests/test_torch_kernel_gpu.py -m gpu --noconftest``)."""
 
@@ -89,6 +90,60 @@ def test_kernel_view_sizes_and_group_widths_on_card(cuda_device, view, B,
                               group_lanes)
         assert B % geo.envs_per_block != 0
     _check_case(cuda_device, env, "interact", B, reset, group_lanes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id,view,B,reset,group_lanes", [
+    ("MiniGrid-DoorKey-8x8-v0", 33, 1024, True, None),
+    ("MiniGrid-DoorKey-8x8-v0", 63, 1001, False, None),
+    ("MiniGrid-MultiRoom-N6-v0", 63, 1024, True, None),
+    ("MiniGrid-MultiRoom-N6-v0", 33, 1001, False, 32),
+    *[("MiniGrid-DoorKey-8x8-v0", 49, 1001, True, g)
+      for g in GROUP_LANES[2:]],
+])
+def test_kernel_64_bit_rows_on_card(cuda_device, env_id, view, B, reset,
+                                    group_lanes):
+    """Views of 33-63 (64-bit view rows): both entries against the plain
+    versions, bit-exact, on 8x8 and 25x25 grids, ragged blocks and the G
+    that fit."""
+    env = minigrid_tpu_torch.make(env_id, device=cuda_device).packed()
+    env = env.replace_params(view_size=view)
+    _check_case(cuda_device, env, "interact", B, reset, group_lanes)
+    _, st = env.reset(env.generator(5), B)
+    got = (fused_observe(env.params, st) if group_lanes is None else
+           _fused_observe_cuda(env.params, st, group_lanes))
+    assert torch.equal(got, fused_observe_reference(env.params, st))
+
+
+@pytest.mark.gpu
+def test_recurrent_forward_card_matches_cpu(cuda_device):
+    """ActorCriticRNN in float32 on the card against the same parameters
+    on the CPU, on DoorKey-8x8 observations from a nonzero hidden state:
+    logits, value and the new hidden within 1e-5 (the devices sum the
+    matmuls in different orders); bf16 on the card gives finite outputs
+    in its dtype."""
+    from minigrid_tpu_torch.models.actor_critic import (ActorCriticRNN,
+                                                        init_params_rnn)
+
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0",
+                                  device=cuda_device).packed()
+    g = env.generator(0)
+    obs, _ = env.reset_staggered(g, 1024)
+    card = init_params_rnn(ActorCriticRNN(dtype=torch.float32,
+                                          device=cuda_device), g)
+    cpu = ActorCriticRNN(dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    h = torch.randn((1024, card.hidden), generator=g, device=cuda_device)
+    with torch.no_grad():
+        (lc, vc), hc = card(obs, h)
+        (lp, vp), hp = cpu({k: v.cpu() for k, v in obs.items()}, h.cpu())
+    for got, want in ((lc, lp), (vc, vp), (hc, hp)):
+        assert (got.cpu() - want).abs().max().item() <= 1e-5
+    bf = ActorCriticRNN(device=cuda_device)
+    with torch.no_grad():
+        (lb, vb), hb = bf(obs, bf.initial_state(1024))
+    assert hb.dtype == torch.bfloat16 and lb.dtype == torch.float32
+    assert torch.isfinite(lb).all() and torch.isfinite(vb).all()
 
 
 def _check_case(device, env, kind, B, reset, group_lanes=None, T=32):

@@ -160,9 +160,6 @@ def test_train_smoke_with_checkpoints(tmp_path, resets, steps_per_call):
 
 
 def test_train_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train("MiniGrid-Empty-5x5-v0", TrainConfig(recurrent=True),
-              device=CPU)
     with pytest.raises(NotImplementedError, match="item 15"):
         train("MiniGrid-Empty-5x5-v0", TrainConfig(devices=2), device=CPU)
     with pytest.raises(ValueError, match="pool_size"):

@@ -33,7 +33,9 @@ import minigrid_tpu_torch
 from minigrid_tpu_torch.convert import (actor_critic_from_flax,
                                         actor_critic_to_flax,
                                         adam_state_from_optax)
-from minigrid_tpu_torch.models.actor_critic import ActorCritic, init_params
+from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
+                                                    ActorCriticRNN,
+                                                    init_params)
 from minigrid_tpu_torch.models import ppo as P
 
 from tests.torch_port_utils import (share_cpu,  # noqa: F401
@@ -276,6 +278,7 @@ def test_train_step_refusals():
     obs, st = env.reset(env.generator(0), 8)
     with pytest.raises(ValueError, match="LayoutPool"):
         step(st, obs, env.generator(0))
-    model.is_recurrent = True
-    with pytest.raises(NotImplementedError, match="item 14"):
-        P.make_train_step(env, model, cfg, opt)
+    rnn = ActorCriticRNN(hidden=16, device=CPU)
+    with pytest.raises(ValueError, match="rotate"):
+        P.make_train_step(env, rnn, dataclasses.replace(
+            cfg, shuffle="timestep"), P.make_optimizer(rnn, cfg))

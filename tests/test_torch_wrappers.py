@@ -283,15 +283,86 @@ def test_flat_obs_long_missions_match_jax():
 
 
 def test_view_size_beyond_the_kernel_raises():
-    """The kernel observes odd view sizes 3-31, so ViewSizeWrapper refuses
+    """The kernel observes odd view sizes 3-63, so ViewSizeWrapper refuses
     a larger one on every device (the JAX package takes any odd size; the
     gap is in ROADMAP Queue 3)."""
     jenv, penv = envs(DOORKEY, False)
-    JW.ViewSizeWrapper(jenv, 33)
-    PW.ViewSizeWrapper(penv, 31)
-    for v in (33, 4):
-        with pytest.raises(ValueError, match="odd view sizes 3..31"):
+    JW.ViewSizeWrapper(jenv, 65)
+    PW.ViewSizeWrapper(penv, 63)
+    for v in (65, 4):
+        with pytest.raises(ValueError, match="odd view sizes 3..63"):
             PW.ViewSizeWrapper(penv, v)
+
+
+def reference_sweep(transparent):
+    """The reference's two-pass visibility sweep (minigrid/core/grid.py:
+    291-328) on one (V, V) transparency window [x, y], agent at (V//2,
+    V-1), in numpy: any width (the JAX package's int32 row packing stops
+    at 31)."""
+    V = transparent.shape[0]
+    mask = np.zeros((V, V), bool)
+    mask[V // 2, V - 1] = True
+    for j in reversed(range(V)):
+        for i in range(V - 1):
+            if mask[i, j] and transparent[i, j]:
+                mask[i + 1, j] = True
+                if j > 0:
+                    mask[i + 1, j - 1] = mask[i, j - 1] = True
+        for i in reversed(range(1, V)):
+            if mask[i, j] and transparent[i, j]:
+                mask[i - 1, j] = True
+                if j > 0:
+                    mask[i - 1, j - 1] = mask[i, j - 1] = True
+    return mask
+
+
+@pytest.mark.parametrize("view", [33, 49])
+def test_view_size_wide_matches_jax(view):
+    """Views of 33-63 take 64-bit rows. On a see-through env (Fetch) the
+    port's ViewSizeWrapper equals JAX's, bit for bit, at reset and over
+    the interaction stream's steps. With walls (DoorKey) JAX's own wrapper
+    overflows its int32 rows (``OverflowError``), so the port is held to
+    JAX's see-through window at that size masked by the reference's sweep:
+    each cell's transparency is JAX's (the agent's own cell is always
+    transparent: the agent stands only on cells it can overlap)."""
+    import dataclasses
+
+    from minigrid_tpu.core import constants as JC
+    from minigrid_tpu.core.obs import gen_obs as j_gen_obs
+
+    for env_id in ("MiniGrid-Fetch-8x8-N3-v0", DOORKEY):
+        jenv, penv = envs(env_id, False)
+        pw = PW.ViewSizeWrapper(penv, view)
+        _, jobs, jst = base_layouts(env_id, False)
+        pobs, pst = pw.reset_from(export(jst))
+        step = jax.jit(jax.vmap(jenv.step))
+        wide = dataclasses.replace(jenv.params, view_size=view,
+                                   see_through_walls=True)
+        window = jax.jit(jax.vmap(lambda s: j_gen_obs(wide, s)["image"]))
+        observe = jax.jit(jax.vmap(JW.ViewSizeWrapper(jenv,
+                                                      view).observation))
+        acts = action_stream("interact", 4, NB)
+        for t in range(5):
+            msg = f"{env_id} V={view} step {t}"
+            if jenv.params.see_through_walls:
+                img = np.asarray(observe(jobs, jst)["image"])
+            else:
+                img = np.asarray(window(jst))
+                typ, state = img[..., 0], img[..., 2]
+                transparent = ~((typ == JC.WALL) | (
+                    (typ == JC.DOOR) & (state != JC.OPEN)))
+                transparent[:, view // 2, view - 1] = True
+                vis = np.stack([reference_sweep(tr) for tr in transparent])
+                img = np.where(vis[..., None], img, 0).astype(np.uint8)
+            assert_obs_equal(pobs["image"], img, msg)
+            if t == 4:
+                break
+            jk, pk = keys_of(30 + t)
+            jobs, jst, *_ = step(jk, jst, jnp.asarray(acts[t]))
+            pobs, pst, *_ = pw.step(pk, pst, torch.from_numpy(acts[t]))
+    with pytest.raises(OverflowError):
+        jax.jit(JW.ViewSizeWrapper(envs(DOORKEY, False)[0], view).reset)(
+            jax.random.PRNGKey(0))
 
 
 def test_module_exports_match_jax():
