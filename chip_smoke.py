@@ -398,6 +398,15 @@ def clone_generator(g):
     return torch.Generator(device=g.device).set_state(g.get_state())
 
 
+def zero_counts():
+    """Set every kernel launch count to 0: done just before a path is
+    driven, whose counts are read just after."""
+    from minigrid_tpu_torch.ops.fused_step import KERNEL
+
+    KERNEL.launches = KERNEL.observe_launches = 0
+    KERNEL.wide_launches = KERNEL.wide_observe_launches = 0
+
+
 def assert_same(name, got, want):
     """Exact equality of two tensors, or of two dicts/states of them,
     across devices (NaN equals NaN)."""
@@ -688,7 +697,7 @@ def main() -> int:
     noise = sample_rollout_noise(g, pool, BATCH, ROLLOUT_LEN,
                                  model.num_actions)
     torch.cuda.synchronize()
-    KERNEL.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     st, obs, traj, _ = rollout(model, env, st, obs, noise)
     torch.cuda.synchronize()
@@ -778,7 +787,7 @@ def main() -> int:
         cursor = torch.zeros((), dtype=torch.int32, device="cuda")
         cursor_c = cursor.cpu()
         n_done = overflow = 0
-        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        zero_counts()
         for t in range(T):
             keys = random_keys(g, (B, 2), "cuda")
             a = torch.randint(0, 7, (B,), generator=g, device="cuda",
@@ -813,7 +822,7 @@ def main() -> int:
                 assert_same(f"{mode} step {t} {name}", x, y)
             st, st_c = out[1], ref[1]
             n_done += int((out[3] | out[4]).sum())
-        if (KERNEL.launches - l0, KERNEL.observe_launches - o0) != (T, T):
+        if (KERNEL.launches, KERNEL.observe_launches) != (T, T):
             raise AssertionError(f"{mode}: expected {T} step and {T} observe "
                                  "launches")
         if n_done < B:
@@ -848,7 +857,7 @@ def main() -> int:
         rows = presample_reset_states(g, env.make_pool(g, 32), T)
         choice = torch.tensor([0, 1, 2, 2, 3, 4, 5, 5, 6], device="cuda")
         n_done = n_success = 0
-        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        zero_counts()
         level_module.USE_DONE_ACTIONS = done_actions
         for t in range(T):
             keys = random_keys(g, (B, 2), "cuda")
@@ -870,7 +879,7 @@ def main() -> int:
             n_success += int((out[2] > 0).sum())
         level_module.USE_DONE_ACTIONS = USE_DONE_ACTIONS
         want = (T, T if level else T // 2)
-        launched = (KERNEL.launches - l0, KERNEL.observe_launches - o0)
+        launched = (KERNEL.launches, KERNEL.observe_launches)
         if launched != want:
             raise AssertionError(f"{env_id}: (step, observe) launches "
                                  f"{launched}, expected {want}")
@@ -907,9 +916,9 @@ def main() -> int:
         launched = {v: [] for v in RENDER_VARIANTS}  # per card call
         for tile in (8, 32):
             for variant, kw in RENDER_VARIANTS.items():
-                o0 = KERNEL.observe_launches
+                zero_counts()
                 got = get_frame(env.params, st, tile_size=tile, **kw)
-                launched[variant].append(KERNEL.observe_launches - o0)
+                launched[variant].append(KERNEL.observe_launches)
                 want = get_frame(env.params, st_c, tile_size=tile, **kw)
                 assert_same(f"{short(env_id)} {variant} frame tile {tile}",
                             got, want)
@@ -955,7 +964,7 @@ def main() -> int:
         st_c = st.map(lambda x: x.cpu())
         rows = (None if exact
                 else presample_reset_states(g, w.make_pool(g, 64), T))
-        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        zero_counts()
         n_done = 0
         for t in range(T):
             keys = random_keys(g, (B, 2), "cuda")
@@ -973,7 +982,7 @@ def main() -> int:
                 assert_same(f"{name} step {t} {part}", x, y)
             st, st_c = out[1], ref[1]
             n_done += int((out[3] | out[4]).sum())
-        launched = (KERNEL.launches - l0, KERNEL.observe_launches - o0)
+        launched = (KERNEL.launches, KERNEL.observe_launches)
         want = (per_step[0] * T, per_step[1] * T)
         if launched != want:
             raise AssertionError(f"{name}: (step, observe) launches "
@@ -1002,12 +1011,12 @@ def main() -> int:
         obs0, st0_b = reset_seeds(benv, range(BOT_SEEDS))
         trace, cpu_trace = [], []
         torch.cuda.synchronize()
-        l0, o0 = KERNEL.launches, KERNEL.observe_launches
+        zero_counts()
         t0 = time.perf_counter()
         eps = bot_episodes(benv, obs0, st0_b, BOT_STEPS, trace)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launched = (KERNEL.launches - l0, KERNEL.observe_launches - o0)
+        launched = (KERNEL.launches, KERNEL.observe_launches)
         if launched != (len(trace), len(trace)):
             raise AssertionError(f"{level}: (step, observe) launches "
                                  f"{launched} over {len(trace)} steps")
@@ -1072,7 +1081,7 @@ def main() -> int:
         st, obs, _ = step(st, obs, tg, tpool)               # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        KERNEL.launches = KERNEL.observe_launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         metrics, visits = [], []
         for _ in range(reps):
@@ -1190,7 +1199,7 @@ def main() -> int:
         st, obs, h, _ = step(st, obs, h, tg)                # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        KERNEL.launches = KERNEL.observe_launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         metrics = []
         for _ in range(3):
@@ -1541,8 +1550,7 @@ def main() -> int:
 
         sst = run(sst)  # warm-up
         torch.cuda.synchronize()
-        KERNEL.launches = KERNEL.observe_launches = 0
-        KERNEL.wide_launches = KERNEL.wide_observe_launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         sst = run(sst)
         torch.cuda.synchronize()
@@ -1770,12 +1778,12 @@ def main() -> int:
     reset_seeds(ienv, range(16))  # each seed's layout from its own generator
     torch.cuda.synchronize()
     seed_reset_s = (time.perf_counter() - t0) / 16
-    l0, o0 = KERNEL.launches, KERNEL.observe_launches
     torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     demos = generate_demos(ienv, 300)
     demo_s = time.perf_counter() - t0
-    demo_launches = (KERNEL.launches - l0, KERNEL.observe_launches - o0)
+    demo_launches = (KERNEL.launches, KERNEL.observe_launches)
     ig = ienv.generator(SEED)
     bc_model = init_params(ActorCritic(hidden=128, device="cuda"), ig)
     t0 = time.perf_counter()

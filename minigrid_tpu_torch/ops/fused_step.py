@@ -54,7 +54,18 @@ MAX_THREADS = 256  # threads per block (csrc/fused_step.cu kMaxThreads)
 # per SM) ran 151.7 us per T=128 launch and G=16 (15.5) 231.2 us
 # (port_probes/rollout_profile.py sweep, PERF.md).
 MIN_WARPS_PER_SM = 4
+# Where a block's shared memory leaves an SM room for few blocks, G is then
+# widened (the same envs a block) until the blocks an SM holds at once have
+# this many warps. On an H100 at B=4096, MultiRoom-N6's 25x25 at view 63
+# (8 envs, 172 KB a block, one block an SM) ran a T=128 launch in 30.4 ms
+# at G=8 (2 warps), 15.2 at G=16 and 10.0 at G=32; at B=65536 at view 7
+# (32 envs, 182 KB) 12.6 ms at G=1 and 3.4 at G=8, whose 8 warps are also
+# where the 8x8 grid's picks land (port_probes/rollout_profile.py
+# --sweep-only, PERF.md).
+RESIDENT_WARPS_PER_SM = 8
 SMEM_LIMIT = 227 * 1024  # shared memory one block may opt into on sm_90
+SMEM_PER_SM = 228 * 1024  # shared memory of an sm_90 SM, of which
+SMEM_PER_BLOCK_RESERVED = 1024  # each resident block holds back 1 KB
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_step.cu"
@@ -287,6 +298,13 @@ def pick_group_lanes(batch: int, sm_count: int) -> int:
     return GROUP_LANES[-1]
 
 
+def resident_warps(geo: "LaunchGeometry") -> int:
+    """Warps of the blocks an SM holds at once, as its shared memory
+    allows."""
+    blocks = SMEM_PER_SM // (geo.shared_memory_bytes + SMEM_PER_BLOCK_RESERVED)
+    return blocks * geo.threads // 32
+
+
 def launch_geometry(batch: int, width: int, height: int, view_size: int,
                     sm_count: int, group_lanes: int | None = None
                     ) -> LaunchGeometry:
@@ -295,17 +313,23 @@ def launch_geometry(batch: int, width: int, height: int, view_size: int,
     while the block's shared memory exceeds the opt-in limit (a block keeps
     at least one full warp). When G is picked and even one warp of envs
     does not fit (a 25x25 grid at a view of 21 or more with G=1), the next
-    wider G is taken. Raises ``ValueError`` for a view size, G or grid the
+    wider G is taken; then G is widened while the blocks an SM holds at
+    once have fewer than ``RESIDENT_WARPS_PER_SM`` warps (G=32 at a view of
+    63 on 25x25). Raises ``ValueError`` for a view size, G or grid the
     kernel does not take."""
     check_view_size(view_size)
     if group_lanes is not None:
         return _geometry(batch, width, height, view_size, group_lanes)
     first = GROUP_LANES.index(pick_group_lanes(batch, sm_count))
-    for g in GROUP_LANES[first:]:
-        if shared_memory_bytes(width * height, view_size,
-                               max(1, 32 // g)) <= SMEM_LIMIT:
-            return _geometry(batch, width, height, view_size, g)
-    return _geometry(batch, width, height, view_size, GROUP_LANES[-1])
+    fits = [g for g in GROUP_LANES[first:]
+            if shared_memory_bytes(width * height, view_size,
+                                   max(1, 32 // g)) <= SMEM_LIMIT]
+    geo = _geometry(batch, width, height, view_size,
+                    fits[0] if fits else GROUP_LANES[-1])
+    while (geo.group_lanes < GROUP_LANES[-1]
+           and resident_warps(geo) < RESIDENT_WARPS_PER_SM):
+        geo = _geometry(batch, width, height, view_size, 2 * geo.group_lanes)
+    return geo
 
 
 def _geometry(batch, width, height, view_size, g) -> LaunchGeometry:

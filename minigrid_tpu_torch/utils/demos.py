@@ -20,6 +20,9 @@ import torch
 from minigrid_tpu_torch.core.obs import packed_to_image
 from minigrid_tpu_torch.utils.baby_ai_bot import BabyAIBot, host_state
 
+# seeds whose episodes run as one batch in generate_demos
+DEMO_BATCH = 64
+
 
 class DemoBatch(NamedTuple):
     """Padded demonstration set. N episodes, T = longest episode."""
@@ -94,15 +97,15 @@ def run_bot_episodes(env, seeds, max_steps: int = 240):
 
 
 def generate_demos(env, num_episodes: int, start_seed: int = 0,
-                   max_steps: int = 240, max_seed_tries: int = 50,
-                   batch: int = 64) -> DemoBatch:
+                   max_steps: int = 240, max_seed_tries: int = 50
+                   ) -> DemoBatch:
     """Collect ``num_episodes`` solved bot episodes.
 
     Seeds count up from ``start_seed``; an unsolved seed is skipped, and
     :class:`RuntimeError` is raised when ``max_seed_tries + num_episodes``
-    seeds run out first (JAX's contract). Up to ``batch`` seeds' episodes
-    run as one batch (:func:`run_bot_episodes`); the result is the
-    one-seed-at-a-time loop's (``batch=1``) whatever the batch."""
+    seeds run out first (JAX's contract). Up to :data:`DEMO_BATCH` seeds'
+    episodes run as one batch (:func:`run_bot_episodes`), with the result
+    of the one-seed-at-a-time loop."""
     episodes = []
     seed, tries = start_seed, 0
     budget = max_seed_tries + num_episodes
@@ -113,7 +116,7 @@ def generate_demos(env, num_episodes: int, start_seed: int = 0,
                 " demos")
         # no more seeds a batch than twice the demos still missing: each
         # seed costs a reset of its own
-        k = min(batch, budget - tries, 2 * (num_episodes - len(episodes)))
+        k = min(DEMO_BATCH, budget - tries, 2 * (num_episodes - len(episodes)))
         seeds = list(range(seed, seed + k))
         for s, (images, dirs, actions, mission, solved) in zip(
                 seeds, run_bot_episodes(env, seeds, max_steps)):

@@ -5,6 +5,7 @@ kernel at the main path's batch and at a batch that fills the card, and a
 sweep of the kernel's group width G.
 
     python3 port_probes/rollout_profile.py [--steps 16] [--train-only]
+                                           [--sweep-only]
 
 Prints the card, the host time per rollout step, the device busy share
 (union of kernel intervals over the profiled wall time), the top device
@@ -13,7 +14,13 @@ T=1 and T=128, with the public and the kernel-native observation layout,
 and pure stepping throughput at B=4096 and B=65536 (device time, one T=128
 launch). Then the sweep: the kernel's device time per launch (profiler) at
 every group width G, at B=4096, 16384 and 65536, T=1 with a reset row and
-T=128, beside the G that ``launch_geometry`` picks. ``--train-only``
+T=128, beside the G that ``launch_geometry`` picks; and the same, the
+observe entry too, at shapes whose blocks take most of an SM's shared
+memory: the 64-bit view rows' timed shapes (``chip_smoke.WIDE_SHAPES``:
+DoorKey-8x8 at view 33, MultiRoom-N6's 25x25 at view 63) at B=4096 and
+MultiRoom-N6 at view 7 at B=16384 and 65536, at every G whose block fits.
+``--sweep-only`` runs the sweeps alone.
+``--train-only``
 profiles only the train step: one step of DoorKey-8x8 at B=4096, T=128,
 bf16 hidden=256, ``PPOConfig()`` per reset mode, with its host time, device
 kernels, device busy share and top kernels; ``--families`` adds the train
@@ -196,6 +203,53 @@ def sweep_group_lanes(env, g, pool, card: str) -> None:
                   f"picked G={picked}")
 
 
+def sweep_big_blocks(card: str) -> None:
+    """Device time per launch at every G that fits, at shapes whose blocks
+    take most of an SM's shared memory: T=1 with a reset row, T=128,
+    observe."""
+    import torch
+
+    import minigrid_tpu_torch as mt
+    from chip_smoke import WIDE_SHAPES, device_ms
+    from minigrid_tpu_torch.ops import fused_step as F
+
+    sms = F.sm_count(torch.device("cuda"))
+    print(f"group-width sweep at large blocks, device time per launch in us "
+          f"({card}, {sms} SMs):")
+    multiroom = "MiniGrid-MultiRoom-N6-v0"
+    shapes = [(name, env_id, view, 4096) for name, env_id, view in WIDE_SHAPES]
+    shapes += [("MultiRoom-N6 25x25 view 7", multiroom, 7, b)
+               for b in (16384, 65536)]
+    for name, env_id, view, batch in shapes:
+        env = mt.make(env_id, device="cuda").packed().replace_params(
+            view_size=view)
+        p, g = env.params, env.generator(0)
+        _, stb = env.reset(g, batch)
+        row = env.make_pool(g, 16).rows(0)
+        a1, a128 = (torch.randint(0, 7, (t, batch), generator=g,
+                                  device="cuda", dtype=torch.int32)
+                    for t in (1, 128))
+        for G in F.GROUP_LANES:
+            try:
+                geo = F.launch_geometry(batch, p.width, p.height, view, sms,
+                                        G)
+            except ValueError:
+                continue
+            t1 = device_ms(lambda: F._fused_rollout_cuda(
+                p, stb, a1, False, row.grid, row.scal, G), 50)
+            t128 = device_ms(lambda: F._fused_rollout_cuda(
+                p, stb, a128, False, None, None, G), 5)
+            ob = device_ms(lambda: F._fused_observe_cuda(p, stb, G), 50,
+                           kernel="fused_observe_kernel")
+            print(f"  {name}, B={batch}: G={G} ({geo.envs_per_block} envs, "
+                  f"{geo.threads // 32} warps, {geo.shared_memory_bytes} B a "
+                  f"block): T=1 with reset row {t1 * 1e3:.2f}, T=128 "
+                  f"{t128 * 1e3:.2f}, observe {ob * 1e3:.2f}")
+        picked = F.launch_geometry(batch, p.width, p.height, view, sms)
+        print(f"  {name}, B={batch}: picked G={picked.group_lanes} "
+              f"({picked.envs_per_block} envs a block)")
+
+
 def main() -> int:
     import torch
 
@@ -203,6 +257,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--train-only", action="store_true")
     ap.add_argument("--families", action="store_true")
+    ap.add_argument("--sweep-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -214,6 +269,13 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
+    env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
+    g = env.generator(0)
+    pool = env.make_pool(g, 1024)
+    if args.sweep_only:
+        sweep_group_lanes(env, g, pool, card)
+        sweep_big_blocks(card)
+        return 0
     cases = [("MiniGrid-DoorKey-8x8-v0", mode, None)
              for mode in ("pooled", "fresh", "regen")]
     if args.families:
@@ -222,11 +284,9 @@ def main() -> int:
     profile_train_steps(card, cases)
     if args.train_only:
         return 0
-    env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
-    g = env.generator(0)
-    pool = env.make_pool(g, 1024)
     profile_rollout(env, g, pool, 4096, args.steps, card)
     sweep_group_lanes(env, g, pool, card)
+    sweep_big_blocks(card)
     return 0
 
 

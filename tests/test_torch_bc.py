@@ -34,7 +34,7 @@ from minigrid_tpu_torch.models.bc import (bc_epoch, bc_minibatches,
                                           behavior_clone, flatten_demos)
 from minigrid_tpu_torch.models.eval import (episode_budget,
                                             evaluate_success_from)
-from minigrid_tpu_torch.utils.demos import generate_demos
+from minigrid_tpu_torch.utils.demos import generate_demos, run_bot_episodes
 
 from tests.torch_port_utils import share_cpu, CPU, export  # noqa: F401
 
@@ -53,7 +53,7 @@ def port_env():
 def demos(n):
     """The port's bot demos of the level on the CPU, n episodes, shared."""
     if ("demos", n) not in _CACHE:
-        _CACHE[("demos", n)] = generate_demos(port_env(), n, batch=16)
+        _CACHE[("demos", n)] = generate_demos(port_env(), n)
     return _CACHE[("demos", n)]
 
 
@@ -103,16 +103,25 @@ def test_bc_epoch_matches_jax():
 
 
 def test_generate_demos_batched_and_replayable():
-    """Several seeds' episodes as one batch give the DemoBatch of the
-    one-seed-at-a-time loop; each demo's seed regenerates its layout,
-    whose actions replayed solve it at the last step; an exhausted seed
-    budget raises."""
+    """The seeds' episodes run as one batch give the episodes of the
+    one-seed-at-a-time loop (each seed a batch of its own through
+    ``run_bot_episodes``); each demo's seed regenerates its layout, whose
+    actions replayed solve it at the last step; an exhausted seed budget
+    raises."""
     env = port_env()
-    one = generate_demos(env, 5, start_seed=3, batch=1)
-    for k in (4, 7):
-        many = generate_demos(env, 5, start_seed=3, batch=k)
-        for name, a, b in zip(one._fields, one, many):
-            np.testing.assert_array_equal(a, b, err_msg=f"batch {k} {name}")
+    one = generate_demos(env, 5, start_seed=3)
+    alone = [(s, run_bot_episodes(env, [s])[0]) for s in range(3, 3 + 12)]
+    alone = [(s, ep) for s, ep in alone if ep[4]][:5]
+    assert len(alone) == 5
+    assert one.seed.tolist() == [s for s, _ in alone]
+    for i, (s, (images, dirs, actions, mission, _)) in enumerate(alone):
+        L = len(actions)
+        assert int(one.length[i]) == L, f"seed {s}"
+        np.testing.assert_array_equal(one.image[i, :L], np.stack(images))
+        np.testing.assert_array_equal(one.direction[i, :L], dirs)
+        np.testing.assert_array_equal(one.action[i, :L], actions)
+        np.testing.assert_array_equal(one.mission[i], mission)
+        assert not one.image[i, L:].any() and not one.action[i, L:].any()
     assert one.mask.sum(1).tolist() == one.length.tolist()
     assert (np.diff(one.seed) > 0).all() and one.seed[0] >= 3
     for i in (0, 4):
@@ -124,7 +133,7 @@ def test_generate_demos_batched_and_replayable():
                 keys, st, torch.tensor([int(one.action[i, t])]))
         assert bool(te[0]) and float(r[0]) > 0
     with pytest.raises(RuntimeError, match="exhausted"):
-        generate_demos(env, 2, max_steps=1, max_seed_tries=3, batch=2)
+        generate_demos(env, 2, max_steps=1, max_seed_tries=3)
 
 
 def test_eval_cap_matches_jax_on_a_babyai_level():

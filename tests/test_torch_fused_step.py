@@ -219,7 +219,8 @@ def test_launch_geometry_fits_every_env_and_view(group_lanes):
     one warp of its envs exceeds the limit (G=1 from a view of 21 on
     MultiRoom's 25x25, 27 on BabyAI's 22x22 mazes, 31 on the 20x20 room
     and 33-43 on the other grids; G=2 from 49-61); the picked G always
-    fits."""
+    fits, and gives the blocks an SM holds at once
+    ``RESIDENT_WARPS_PER_SM`` warps unless it is already the widest."""
     sizes = set()
     for env_id in minigrid_tpu_torch.registered_ids():
         p = minigrid_tpu_torch.make(env_id, device=CPU).params
@@ -244,6 +245,9 @@ def test_launch_geometry_fits_every_env_and_view(group_lanes):
                 assert geo.threads <= F.MAX_THREADS
                 assert geo.blocks * geo.envs_per_block >= batch
                 assert (geo.blocks - 1) * geo.envs_per_block < batch
+                if group_lanes is None:
+                    assert (F.resident_warps(geo) >= F.RESIDENT_WARPS_PER_SM
+                            or geo.group_lanes == F.GROUP_LANES[-1])
     # the first view that one warp of G=1 or G=2 envs cannot hold, per grid
     first = {
         1: {(4, 4): 43, (5, 5): 43, (6, 6): 43, (7, 3): 43, (7, 4): 43,
@@ -269,7 +273,11 @@ def test_launch_geometry_fits_every_env_and_view(group_lanes):
 def test_launch_geometry_fills_the_card():
     """B=4096 (the rollout's batch) on an H100's 132 SMs: G=8, blocks of 8
     warps on 128 SMs (7.8 warps per SM over all 132); B=65536 needs no
-    more than one lane per env. The choice depends on its arguments
+    more than one lane per env. Where one block holds an SM's shared
+    memory, G is widened until that block has 8 warps: G=32 for the 8 envs
+    of a block at a view of 63 on 25x25 (G=8 gave 2 warps), G=8 for
+    MultiRoom's 25x25 at view 7 at B=65536 (G=1 gave 1); a view of 33 on
+    8x8 keeps G=8 (32 envs, 8 warps). The choice depends on its arguments
     alone."""
     geo = F.launch_geometry(4096, 8, 8, 7, 132)
     assert geo.group_lanes >= 8 and geo.threads // 32 >= 8
@@ -278,6 +286,16 @@ def test_launch_geometry_fills_the_card():
     assert geo == F.launch_geometry(4096, 8, 8, 7, 132)
     big = F.launch_geometry(65536, 8, 8, 7, 132)
     assert big.group_lanes == 1
+    for grid in ((25, 25), (22, 22), (16, 16)):  # the main path's batch
+        assert F.launch_geometry(4096, *grid, 7, 132).group_lanes == 8
+    wide = F.launch_geometry(4096, 25, 25, 63, 132)
+    assert (wide.group_lanes, wide.envs_per_block, wide.threads) == (32, 8,
+                                                                     256)
+    assert F.resident_warps(wide) == 8
+    assert F.launch_geometry(4096, 8, 8, 33, 132).group_lanes == 8
+    many = F.launch_geometry(65536, 25, 25, 7, 132)
+    assert (many.group_lanes, many.envs_per_block) == (8, 32)
+    assert F.resident_warps(many) == 8
     picks = [F.pick_group_lanes(b, 132) for b in (64, 4096, 8192, 65536)]
     assert picks == [32, 8, 4, 1]
     assert picks == [F.pick_group_lanes(b, 132) for b in (64, 4096, 8192,
