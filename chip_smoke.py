@@ -72,6 +72,15 @@ Phases, each fatal on failure:
    step), and of the 64-bit rows' paths (DoorKey-8x8 at view 33, a
    ViewSizeWrapper of 63), whose kernel times at DoorKey-8x8 view 33 and
    MultiRoom-N6 view 63 are taken beside the other shapes;
+   WaveFunctionCollapse (3d): the solver on the card against the CPU
+   from the same keys (5 configurations at 23x23, B=64; ``propagate`` and
+   ``largest_component``), a 1024-layout pool of each of the 6 IDs made
+   on the card and held to its invariants, and 32 pooled steps of
+   WFC-MazeSimple replayed on the CPU; phase 2 runs both entries on
+   WFC-MazeSimple and WFC-ObstaclesAngular states, phase 4 the
+   WFC-MazeSimple pooled train step, phase 5 its 25x25 kernel times,
+   generation at B=4096 of three IDs, the support product in bf16 and
+   f32, and ``benchmark`` on WFC-MazeSimple;
 6. learning on the card: the JAX package's guards (Empty-5x5 regen,
    pooled+packed and fresh, 30 updates; DoorKey-5x5, 120 updates at
    B=256), then the greedy success rate of the DoorKey-5x5 policy; then
@@ -138,12 +147,13 @@ FAMILY_TRAIN = [("MiniGrid-MultiRoom-N6-v0", "pooled", None),
                 ("MiniGrid-Fetch-8x8-N3-v0", "fresh", 12288),
                 ("BabyAI-GoToObj-v0", "fresh", "budget"),
                 ("BabyAI-PutNextLocal-v0", "fresh", "budget"),
-                ("MiniGrid-KeyCorridorS6R3-v0", "pooled", None)]
+                ("MiniGrid-KeyCorridorS6R3-v0", "pooled", None),
+                ("MiniGrid-WFC-MazeSimple-v0", "pooled", None)]
 # the earlier families' train steps are timed once, not three times, to
 # hold the script's wall time as the configurations grow
 ONE_TIMED_STEP = {"MiniGrid-MultiRoom-N6-v0",
                   "MiniGrid-Dynamic-Obstacles-16x16-v0",
-                  "MiniGrid-Fetch-8x8-N3-v0"}
+                  "MiniGrid-Fetch-8x8-N3-v0", "MiniGrid-WFC-MazeSimple-v0"}
 # the kernel's shapes timed beside DoorKey-8x8's: (name, env id, whether the
 # T=1 launch carries a reset row). The BabyAI and RoomGrid steps take the
 # step entry without a row (the hook path)
@@ -152,7 +162,8 @@ SHAPES = [("MultiRoom-N6 25x25", "MiniGrid-MultiRoom-N6-v0", True),
           ("Fetch-8x8-N3 see-through", "MiniGrid-Fetch-8x8-N3-v0", True),
           ("BossLevel 22x22", "BabyAI-BossLevel-v0", False),
           ("ObstructedMaze-Full 16x16", "MiniGrid-ObstructedMaze-Full-v0",
-           False)]
+           False),
+          ("WFC-MazeSimple 25x25", "MiniGrid-WFC-MazeSimple-v0", True)]
 # generation on the card at full width: seconds per batch, host syncs, the
 # most attempts (levels) or connect_all draws any env used, levels not valid
 GENERATION = ["BabyAI-BossLevel-v0", "MiniGrid-KeyCorridorS6R3-v0"]
@@ -173,6 +184,34 @@ BOT_LEVELS = ["BabyAI-GoToRedBallGrey-v0", "BabyAI-GoToLocal-v0",
               "BabyAI-KeyCorridorS3R3-v0", "BabyAI-MoveTwoAcrossS8N9-v0"]
 BOT_SEEDS = 8
 BOT_STEPS = 240
+# WaveFunctionCollapse: both kernel entries on the states of the smallest
+# and the largest catalog (P=12 and P=42) of the 6 IDs at 25x25; the solver
+# card against CPU from the same keys (the noise-free location heuristics
+# with the lexical choice, backtracking with allpatterns, and backtracking
+# with the defaults' hash draws); a pool of each ID checked by invariants;
+# the pooled train step; generation at full width of the most collapses
+# (MazeSimple), the most passes (DungeonMazeScaled) and the largest catalog
+# (ObstaclesAngular)
+WFC_IDS = [f"MiniGrid-WFC-{name}-v0" for name in (
+    "MazeSimple", "DungeonMazeScaled", "RoomsFabric", "ObstaclesBlackdots",
+    "ObstaclesAngular", "ObstaclesHogs3")]
+WFC_KERNEL = ["MiniGrid-WFC-MazeSimple-v0",
+              "MiniGrid-WFC-ObstaclesAngular-v0"]
+WFC_SOLVES = [("MazeSimple", {"loc_heuristic": "simple",
+                              "choice_heuristic": "lexical"}),
+              ("MazeSimple", {"loc_heuristic": "spiral",
+                              "choice_heuristic": "lexical"}),
+              ("DungeonMazeScaled", {"loc_heuristic": "lexical",
+                                     "choice_heuristic": "lexical"}),
+              ("MazeSimple", {"loc_heuristic": "lexical",
+                              "choice_heuristic": "lexical",
+                              "backtracking": True,
+                              "global_constraint": "allpatterns"}),
+              ("ObstaclesBlackdots", {"backtracking": True})]
+WFC_GENERATION = ["MiniGrid-WFC-MazeSimple-v0",
+                  "MiniGrid-WFC-DungeonMazeScaled-v0",
+                  "MiniGrid-WFC-ObstaclesAngular-v0"]
+WFC_POOL = 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # INT32 issue rate of an H100 SXM: 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x the 1.98 GHz boost clock that the
@@ -454,6 +493,241 @@ def compare(name, got, want) -> float:
     return err
 
 
+def wfc_catalog(preset: str, device):
+    """(adj, weights, output_periodic) of a WFC preset's catalog."""
+    from minigrid_tpu_torch.envs.wfc import WFCEnv
+
+    env = WFCEnv(wfc_config=preset, device=device)
+    return env._adj, env._weights, env.config.output_periodic
+
+
+def wfc_solver_replays(device, B=64, shape=(23, 23)):
+    """The WFC solver on ``device`` and on the CPU from the same keys:
+    grids and ``ok`` of each :data:`WFC_SOLVES` configuration, ``propagate``
+    on seeded random waves (periodic and not) and ``largest_component`` on
+    random masks, bit-exact. Returns what each solve gave."""
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch.envs.base import random_keys
+    from minigrid_tpu_torch.envs.wfc import solver as S
+    from minigrid_tpu_torch.envs.wfc import wfcenv as W
+
+    g = torch.Generator(device=device).manual_seed(SEED + 20)
+    out = {}
+    for preset, kw in WFC_SOLVES:
+        adj, w, periodic = wfc_catalog(preset, device)
+        keys = random_keys(g, (B, 2), device)
+        grid, ok = S.solve(keys, adj, w, shape, periodic, **kw)
+        grid_c, ok_c = S.solve(keys.cpu(), adj, w, shape, periodic, **kw)
+        name = f"WFC {preset} {kw or 'defaults'}"
+        assert_same(f"{name} grid", grid, grid_c)
+        assert_same(f"{name} ok", ok, ok_c)
+        out[f"{preset} {json.dumps(kw)}"] = int(ok.sum())
+        print(f"{name} B={B} {shape[0]}x{shape[1]}: {int(ok.sum())} of {B} "
+              f"solved; the card == the CPU")
+    rng = np.random.default_rng(SEED)
+    for preset in ("MazeSimple", "DungeonMazeScaled"):
+        adj, _, periodic = wfc_catalog(preset, device)
+        waves = rng.random((B, adj.shape[1]) + shape) < rng.choice(
+            [0.4, 0.7, 0.95], (B, 1, 1, 1))
+        waves = torch.from_numpy(waves)
+        got = S.propagate(waves.to(device), adj, periodic)
+        want = S.propagate(waves, adj, periodic)
+        assert_same(f"WFC propagate {preset} wave", got[0], want[0])
+        assert_same(f"WFC propagate {preset} contradiction", got[1], want[1])
+        print(f"WFC propagate {preset} (periodic={periodic}) B={B}: "
+              f"{int(want[1].sum())} contradictions; the card == the CPU")
+    masks = torch.from_numpy(rng.random((1024,) + shape) < rng.choice(
+        [0.3, 0.55, 0.8], (1024, 1, 1)))
+    assert_same("WFC largest_component",
+                W.largest_component(masks.to(device)),
+                W.largest_component(masks))
+    print("WFC largest_component B=1024: the card == the CPU")
+    return out
+
+
+def wfc_reachable(grid, agent_pos):
+    """(B,) bool: each env's goal reachable from its agent through
+    non-wall cells (a 4-neighbour flood on the device, tested for its
+    fixpoint every 32 passes)."""
+    import torch
+
+    from minigrid_tpu_torch.core import constants as C
+
+    B, Wd, Hd = grid.shape[:3]
+    passable = grid[..., 0] != C.WALL
+    b = torch.arange(B, device=grid.device)
+    reach = torch.zeros((B, Wd, Hd), dtype=torch.bool, device=grid.device)
+    reach[b, agent_pos[:, 0].long(), agent_pos[:, 1].long()] = True
+    while True:
+        before = reach
+        for _ in range(32):
+            grown = reach.clone()
+            grown[:, 1:] |= reach[:, :-1]
+            grown[:, :-1] |= reach[:, 1:]
+            grown[:, :, 1:] |= reach[:, :, :-1]
+            grown[:, :, :-1] |= reach[:, :, 1:]
+            reach = grown & passable
+        if torch.equal(reach, before):
+            break
+    return (reach & (grid[..., 0] == C.GOAL)).flatten(1).any(1)
+
+
+def wfc_pool(env_id, device, B=WFC_POOL):
+    """A pool's worth of layouts of a WFC ID made on ``device`` (the solve
+    with retries, then the layout) and held to its invariants: the wall
+    ring, one goal, the agent on an empty cell (so apart from the goal), the
+    goal reachable, the walls those of the pattern grid, every pair of
+    neighbouring pattern cells allowed by ``adj`` where the env solved.
+    Returns the generation's seconds and counters."""
+    import torch
+
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch.core import constants as C
+    from minigrid_tpu_torch.envs.base import pool_from_states
+    from minigrid_tpu_torch.envs.wfc import solver as S
+
+    env = mt.make(env_id, device=device).packed()
+    g = env.generator(SEED + 21)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    S.COUNTERS.reset()
+    t0 = time.perf_counter()
+    pat, ok, attempts = env.solve(g, B)
+    st = env.layout(g, pat)
+    pool = pool_from_states(st)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = dataclasses.asdict(S.COUNTERS)
+    grid = st.grid
+    t = grid[..., 0]
+    bi = torch.arange(B, device=grid.device)
+    wall = t == C.WALL
+    checks = {
+        "wall ring": bool(wall[:, 0].all() & wall[:, -1].all()
+                          & wall[:, :, 0].all() & wall[:, :, -1].all()),
+        "one goal": bool(((t == C.GOAL).flatten(1).sum(1) == 1).all()),
+        "agent on an empty cell": bool((t[bi, st.agent_pos[:, 0].long(),
+                                          st.agent_pos[:, 1].long()]
+                                        == C.EMPTY).all()),
+        "goal reachable": bool(wfc_reachable(grid, st.agent_pos).all()),
+    }
+    is_wall = torch.as_tensor(env._is_wall, device=grid.device)[pat]
+    inner = wall[:, 1:-1, 1:-1].transpose(1, 2)           # [row, col]
+    checks["walls of the pattern grid"] = bool((inner | ~is_wall).all())
+    adj = torch.as_tensor(env._adj, device=grid.device)
+    right = adj[3][pat[:, :, :-1], pat[:, :, 1:]].flatten(1).all(1)
+    down = adj[1][pat[:, :-1, :], pat[:, 1:, :]].flatten(1).all(1)
+    checks["neighbours allowed where solved"] = bool(
+        ((right & down) | ~ok).all())
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{env_id} pool: {failed} do not hold")
+    if pool.size != B:
+        raise AssertionError(f"{env_id}: pool of {pool.size} rows")
+    res = {"s": secs, "not_ok": int((~ok).sum()),
+           "attempts_max": int(attempts.max()), "counters": c}
+    print(f"WFC pool, {short(env_id)} B={B}: {secs:.3f} s, "
+          f"{res['not_ok']} not ok, attempts at most {res['attempts_max']}, "
+          f"{c['host_syncs']} counted host syncs, collapses at most "
+          f"{c['collapses_max']}, passes at most {c['passes_max']}; "
+          f"invariants hold")
+    return res
+
+
+def wfc_replay_steps(env_id, device, B=256, T=32):
+    """``T`` pooled auto-reset steps of a WFC ID on ``device`` (the step
+    entry with the broadcast row), replayed on the CPU with the same keys,
+    actions and rows: every output bit-exact. Returns (episodes ended,
+    (step, observe) launches of the card's steps)."""
+    import torch
+
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch.envs.base import (presample_reset_states,
+                                              random_keys)
+    from minigrid_tpu_torch.ops.fused_step import KERNEL
+
+    env = mt.make(env_id, device=device).packed()
+    cpu_env = mt.make(env_id, device="cpu").packed()
+    g = env.generator(SEED + 22)
+    _, st = env.reset(g, B)
+    ms = env.params.max_steps
+    st = st.replace(step_count=(ms - 1 - torch.arange(
+        B, device=device) % (2 * T)).to(torch.int32))
+    st_c = st.map(lambda x: x.cpu())
+    rows = presample_reset_states(g, env.make_pool(g, 64), T)
+    n_done = 0
+    zero_counts()
+    for t in range(T):
+        keys = random_keys(g, (B, 2), device)
+        a = torch.randint(0, 7, (B,), generator=g, device=device,
+                          dtype=torch.int32)
+        out = env.step_autoreset_presampled(keys, st, a, rows.rows(t))
+        ref = cpu_env.step_autoreset_presampled(keys.cpu(), st_c, a.cpu(),
+                                                rows.rows(t).to("cpu"))
+        for part, x, y in zip(("obs", "state", "reward", "terminated",
+                               "truncated"), out[:5], ref[:5]):
+            assert_same(f"{short(env_id)} pooled step {t} {part}", x, y)
+        st, st_c = out[1], ref[1]
+        n_done += int((out[3] | out[4]).sum())
+    return n_done, (KERNEL.launches, KERNEL.observe_launches)
+
+
+def wfc_generation(env_id, device, B=BATCH):
+    """One timed generation of ``B`` layouts of a WFC ID (after a warm-up
+    batch of 64): seconds, counted host syncs, the most collapses, passes
+    and attempts any env used, envs not ok."""
+    import torch
+
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch.core import constants as C
+    from minigrid_tpu_torch.envs.wfc import solver as S
+
+    env = mt.make(env_id, device=device).packed()
+    g = env.generator(SEED + 23)
+    env._gen_grid(g, 64)
+    torch.cuda.synchronize()
+    S.COUNTERS.reset()
+    t0 = time.perf_counter()
+    st = env._gen_grid(g, B)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not (st.grid[..., 0] == C.GOAL).flatten(1).any(1).all():
+        raise AssertionError(f"{env_id}: a layout without a goal")
+    return {"s_per_batch": secs} | dataclasses.asdict(S.COUNTERS)
+
+
+def wfc_product_ms(preset="ObstaclesAngular", B=BATCH, shape=(23, 23)):
+    """The support product's time on the card in its two exact operand
+    types, bf16 (the solver's) and f32: one propagation pass
+    (four products and their shifts) and one product alone, at ``B`` waves
+    of the preset's catalog (CUDA events)."""
+    import torch
+
+    from minigrid_tpu_torch.envs.wfc import solver as S
+
+    adj, w, periodic = wfc_catalog(preset, "cuda")
+    P = adj.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    wave = torch.rand((B,) + shape + (P,), generator=g, device="cuda") < 0.5
+    _, adj_bf16, edge_bf16, _ = S._catalog(adj, w, "cuda")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        adj_t, edge = adj_bf16.to(dtype), edge_bf16.to(dtype)
+        x = torch.zeros((wave.numel() // P, adj_t.shape[-1]), dtype=dtype,
+                        device="cuda")
+        x[:, :P] = wave.reshape(-1, P)
+        name = str(dtype).split(".")[-1]
+        out[f"pass_ms_{name}"] = cuda_ms(
+            lambda: S._pass(wave, adj_t, edge, periodic), 10)
+        out[f"product_ms_{name}"] = cuda_ms(
+            lambda: torch.matmul(x, adj_t[0]), 20)
+    out["product_flop"] = 2 * B * shape[0] * shape[1] * P * P  # unpadded
+    return out
+
+
 def main() -> int:
     script_t0 = time.perf_counter()
     import numpy as np
@@ -496,6 +770,7 @@ def main() -> int:
         launch_geometry, sm_count)
 
     from minigrid_tpu_torch.utils.demos import bot_episodes, reset_seeds
+    from minigrid_tpu_torch.benchmark import benchmark
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -637,6 +912,19 @@ def main() -> int:
         errs.append(check(f"{name} B={B} T=32 interaction stream", env_id,
                           B, 32, hint="interact"))
         observe_errs.append(check_observe(f"{name} B={B}", env_id, B))
+    # the WFC layouts (25x25, no step hooks): both entries on the states of
+    # the smallest and the largest catalog of the 6 IDs, the step entry with
+    # and without a reset row; the seconds each WFC addition takes on the
+    # script's clock are kept in ``wfc_secs``
+    t0 = time.perf_counter()
+    for env_id in WFC_KERNEL:
+        name = short(env_id)
+        errs.append(check(f"{name} B=1024 T=32 interaction stream", env_id,
+                          1024, 32, hint="interact"))
+        errs.append(check(f"{name} B=1024 T=32 reset-row entry", env_id,
+                          1024, 32, hint="interact", reset=True))
+        observe_errs.append(check_observe(f"{name} B=1024", env_id, 1024))
+    wfc_secs = {"2 kernel checks": time.perf_counter() - t0}
     max_err = max(errs)
     observe_err = max(observe_errs)
     # the 64-bit view rows (33 <= V <= 63): both entries at V=33 and V=63
@@ -1050,6 +1338,29 @@ def main() -> int:
               f"step + {launched[1]} observe launches; the CPU replay "
               f"bit-exact (host clock; {card})")
 
+    # --- 3d. WaveFunctionCollapse on the card ----------------------------
+    # the solver on the card against the CPU from the same keys, a pool of
+    # each of the 6 IDs made on the card and held to its invariants, and 32
+    # pooled steps of one ID (the step entry with the broadcast row)
+    # replayed on the CPU
+    t0 = time.perf_counter()
+    wfc = {"solves": wfc_solver_replays("cuda")}
+    wfc_secs["3d solver replays"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wfc["pools"] = {short(env_id): wfc_pool(env_id, "cuda")
+                    for env_id in WFC_IDS}
+    wfc_secs["3d pools"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_done, wfc_launched = wfc_replay_steps(WFC_IDS[0], "cuda")
+    wfc_secs["3d stepping"] = time.perf_counter() - t0
+    if wfc_launched != (32, 0):
+        raise AssertionError(f"WFC pooled steps: (step, observe) launches "
+                             f"{wfc_launched}, expected (32, 0)")
+    wfc["stepping"] = {"episodes_ended": n_done, "launches": wfc_launched}
+    print(f"WFC pooled steps, {short(WFC_IDS[0])} (B=256, T=32): {n_done} "
+          f"episodes ended; 32 step + 0 observe launches; card == CPU "
+          f"replay")
+
     # --- 4. the train step at full width --------------------------------
     cfg = PPOConfig()  # B=4096, T=128, 1 epoch of 4 rotate minibatches
     assert (cfg.num_envs, cfg.rollout_len) == (BATCH, ROLLOUT_LEN)
@@ -1172,8 +1483,11 @@ def main() -> int:
         train[mode], profile_later[mode] = train_phase(ENV_ID, mode)
     for env_id, mode, fresh_buffer in FAMILY_TRAIN:
         key = f"{short(env_id)} {mode}"
+        t0 = time.perf_counter()
         train[key], profile_later[key] = train_phase(env_id, mode,
                                                      fresh_buffer)
+        if env_id in WFC_IDS:
+            wfc_secs["4 train step"] = time.perf_counter() - t0
     # a stateful wrapper's WrappedState batch through the pooled train step
     key = "ActionBonus(DoorKey-8x8) pooled"
     train[key], profile_later[key] = train_phase(ENV_ID, "pooled",
@@ -1459,8 +1773,12 @@ def main() -> int:
               f"{out['observe_plain_ms'] * 1e3:.1f} us)")
         return out
 
-    shapes = {name: shape_times(name, env_id, with_row)
-              for name, env_id, with_row in SHAPES}
+    shapes = {}
+    for name, env_id, with_row in SHAPES:
+        t0 = time.perf_counter()
+        shapes[name] = shape_times(name, env_id, with_row)
+        if env_id in WFC_IDS:
+            wfc_secs["5 kernel times"] = time.perf_counter() - t0
     # the 64-bit view rows at B=4096: DoorKey-8x8 at V=33, MultiRoom-N6's
     # 25x25 at V=63
     wide_shapes = {name: shape_times(name, env_id, True, view)
@@ -1500,6 +1818,37 @@ def main() -> int:
         return out
 
     generated = {short(env_id): generation(env_id) for env_id in GENERATION}
+    # WFC generation at full width, the support product's two operand
+    # types, and the benchmark tool on one WFC ID
+    t0 = time.perf_counter()
+    wfc["generation"] = {}
+    for env_id in WFC_GENERATION:
+        r = wfc["generation"][short(env_id)] = wfc_generation(env_id, "cuda")
+        print(f"generation, {short(env_id)} B={BATCH} on the card: "
+              f"{r['s_per_batch']:.3f} s per batch, {r['host_syncs']} counted "
+              f"host syncs, {r['ticks']} ticks; collapses at most "
+              f"{r['collapses_max']}, passes at most {r['passes_max']}, "
+              f"attempts at most {r['attempts_max']}, {r['not_ok']} not ok "
+              f"(host clock; {card})")
+    wfc["product"] = wfc_product_ms()
+    pr = wfc["product"]
+    print(f"WFC support product, ObstaclesAngular (P=42) B={BATCH} 23x23: "
+          f"one pass {pr['pass_ms_bfloat16']:.3f} ms in bf16 (the solver's), "
+          f"{pr['pass_ms_float32']:.3f} ms in f32; one product "
+          f"{pr['product_ms_bfloat16']:.3f} / {pr['product_ms_float32']:.3f} "
+          f"ms ({pr['product_flop'] / 1e9:.2f} GFLOP; CUDA events; {card})")
+    zero_counts()
+    wfc["benchmark"] = benchmark(WFC_IDS[0], num_resets=4, num_frames=200,
+                                 batch=BATCH, chunk=ROLLOUT_LEN,
+                                 device="cuda")
+    wfc["benchmark"]["launches"] = KERNEL.launches
+    print(f"benchmark, {short(WFC_IDS[0])}: {json.dumps(wfc['benchmark'])} "
+          f"(host clock; {card})")
+    wfc_secs["5 generation, product, benchmark"] = time.perf_counter() - t0
+    wfc["script_s"] = wfc_secs
+    print(f"the WFC additions on the script's clock: "
+          f"{sum(wfc_secs.values()):.1f} s in all; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in wfc_secs.items()))
 
     # rendering at full width: device time per call (every kernel the call
     # launches, profiler) beside the byte bound (the state read once, the
@@ -1826,6 +2175,8 @@ def main() -> int:
         "launches_bot": {short(k): v["launches"][0]
                          for k, v in bot_runs.items()},
         "launches_demos": demo_launches[0],
+        # 32 pooled steps of a WFC ID (the step entry with the row)
+        "launches_wfc_stepping": wfc_launched[0],
         # the launch sites this slice added: a wrapper stack's step and
         # pooled stepping at full width, and the wrapper replays
         "launches_per_wrapped_step": {
@@ -1924,7 +2275,7 @@ def main() -> int:
                       "bot": bot_runs,
                       "generation": generated, "render": render_times,
                       "wrapped_stepping": stepping,
-                      "wrappers": wrappers}))
+                      "wrappers": wrappers, "wfc": wfc}))
     print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s from the "
           f"import of torch to the result")
     print(json.dumps({"kernels": kernels}))

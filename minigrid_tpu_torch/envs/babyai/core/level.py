@@ -174,6 +174,14 @@ class RoomGridLevel(RoomGridEnv):
     def default_mission(self) -> str:
         return "go"
 
+    def mission_space(self):
+        """Catch-all (reference BabyAIMissionSpace,
+        roomgrid_level.py:27-43): instructions come from the combinatorial
+        grammar, not enumerable placeholders."""
+        from minigrid_tpu_torch.core.mission_space import BabyAIMissionSpace
+
+        return BabyAIMissionSpace()
+
     # Subclasses: (builder, spec, ok) = gen_mission(generator, builder)
     def gen_mission(self, generator, b: RG.Builder):
         raise NotImplementedError

@@ -810,3 +810,201 @@ class BossLevel(LevelGen):
 class BossLevelNoUnlock(LevelGen):
     def __init__(self, **kw):
         super().__init__(locked_room_prob=0, implicit_unlock=False, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Structured six-section documentation for every level class (the reference
+# BabyAI env files carry the same sections, e.g. the reference's
+# minigrid/envs/babyai/goto.py:13-60), composed with the shared envdoc
+# helper: the JAX package's texts (minigrid_tpu/envs/babyai/levels.py),
+# word for word.
+# ---------------------------------------------------------------------------
+from minigrid_tpu_torch.envs.envdoc import env_doc as _env_doc  # noqa: E402
+
+_GRAMMAR = ("Any sentence the Baby Language grammar can produce: go-to / "
+            "pick-up / open / put-next clauses, optionally described by "
+            "location, joined by and/then/after connectives.")
+
+_LEVEL_DOCS = {
+    "GoToRedBallGrey": (
+        "Walk to the red ball in a single room. Distractors are present "
+        "but all grey, minimizing perceptual load; language is not needed.",
+        '"go to the red ball"', "The agent reaches the red ball."),
+    "GoToRedBall": (
+        "Walk to the red ball in a single room with colored distractors; "
+        "language is still unnecessary.",
+        '"go to the red ball"', "The agent reaches the red ball."),
+    "GoToRedBallNoDists": (
+        "Walk to the red ball in an otherwise empty room (no distractors).",
+        '"go to the red ball"', "The agent reaches the red ball."),
+    "GoToObj": (
+        "Walk to the named object in a single doorless room without "
+        "distractors. `GoToObjS{X}` ids set room size X.",
+        '"go to the {color} {type}"', "The agent reaches the object."),
+    "GoToLocal": (
+        "Walk to the named object in a single doorless room among "
+        "distractors. `GoToLocalS{X}N{Y}` ids set room size X and "
+        "distractor count Y.",
+        '"go to the {color} {type}"', "The agent reaches the object."),
+    "GoTo": (
+        "Walk to the named object, possibly in another room of the maze, "
+        "among many distractors.",
+        '"go to a/the {color} {type}"', "The agent reaches the object."),
+    "GoToImpUnlock": (
+        "Walk to an object that may sit in a locked room: the agent must "
+        "infer it needs a key (implicit unlocking). No blocked paths. "
+        "Competencies: Maze, GoTo, ImpUnlock.",
+        '"go to a/the {color} {type}"', "The agent reaches the object."),
+    "GoToSeq": (
+        "A sequence of go-to commands joined by and/then connectives. No "
+        "locked rooms, locations or unblocking. Competencies: Maze, GoTo, "
+        "Seq.",
+        '"go to a/the {color} {type}" (possibly chained with '
+        '"and ..."/", then ...")', "The agent completes the sequence."),
+    "GoToRedBlueBall": (
+        "Walk to the unique red or blue ball (the mission says which); "
+        "distractors are never red or blue balls, so language is optional.",
+        '"go to the {color} ball"', "The agent reaches the ball."),
+    "GoToDoorLevel": (
+        "Walk next to the door of the named color in the current room; no "
+        "distractors.",
+        '"go to the {color} door"', "The agent reaches the door."),
+    "GoToObjDoor": (
+        "Walk next to the named object or door in the current room.",
+        '"go to the {color} {type}"',
+        "The agent reaches the object or door."),
+    "Open": (
+        "Open a door of the named color, possibly in another room.",
+        '"open a {color} door"', "The agent opens the door."),
+    "OpenRedDoor": (
+        "Open the red door in the current room (always unlocked). A "
+        "deliberately minimal debugging level.",
+        '"open the red door"', "The agent opens the red door."),
+    "OpenDoor": (
+        "Open the door identified by color or by location in the current "
+        "room (always unlocked).",
+        '"open the {color} door"', "The agent opens the requested door."),
+    "OpenTwoDoors": (
+        "Open the first-named door and then the second; the doors face "
+        "opposite directions so the first door's state leaves the view — "
+        "solving reliably needs memory.",
+        '"open the {color} door, then open the {color} door"',
+        "The agent opens the second door after the first."),
+    "OpenDoorsOrder": (
+        "Open one or two doors in the prescribed order (before/after "
+        "connectives).",
+        '"open the {color} door" / two-door order variants',
+        "The agent opens the doors in the required order."),
+    "Pickup": (
+        "Pick up the named object, possibly in another room.",
+        '"pick up a {color} {type}"', "The agent picks up the object."),
+    "UnblockPickup": (
+        "Pick up the named object, possibly in another room, where the "
+        "route may be blocked by objects that must be moved aside.",
+        '"pick up a/the {color} {type}"',
+        "The agent picks up the object."),
+    "PickupLoc": (
+        "Pick up an object that may be described by its location (e.g. "
+        "behind you, on your left) in a single room. Competencies: "
+        "PickUp, Loc.",
+        '"pick up the {color} {type} {location}"',
+        "The agent picks up the object."),
+    "PickupDist": (
+        "Pick up the object described by type, color, or both, in one "
+        "room full of distractors.",
+        '"pick up a/the {color}/{type}/{color} {type}"',
+        "The agent picks up the object."),
+    "PickupAbove": (
+        "Pick up the named object in the room above the agent's start "
+        "room — effectively a compass-use task.",
+        '"go to the {color} {type}"', "The agent picks up the object."),
+    "PutNextLocal": (
+        "Pick up one named object and drop it next to another, in a "
+        "single doorless room.",
+        '"put the {color} {type} next to the {color} {type}"',
+        "The mover object rests next to the target object."),
+    "PutNext": (
+        "Move object A next to object B across a multi-room maze.",
+        '"put the {color} {type} next to the {color} {type}"',
+        "The mover object rests next to the target object."),
+    "MoveTwoAcross": (
+        "Move A next to B and C next to D — a compositional task with a "
+        "very large instruction space.",
+        '"put the {color} {type} next to the {color} {type}, then put '
+        'the {color} {type} next to the {color} {type}"',
+        "Both pairs are adjacent in the required order."),
+    "Unlock": (
+        "Find the key and unlock the door of the named color somewhere in "
+        "the maze. Competencies: Maze, Open, Unlock.",
+        '"open the {color} door"', "The agent opens the locked door."),
+    "UnlockLocal": (
+        "Fetch the key lying in the current room and unlock its door.",
+        '"open the door"', "The agent opens the door."),
+    "KeyInBox": (
+        "Unlock the door; the key is hidden inside a box in the current "
+        "room.",
+        '"open the door"', "The agent opens the door."),
+    "UnlockPickup": (
+        "Unlock the connecting door, then pick up the named box in the "
+        "far room.",
+        '"pick up the {color} box"', "The agent picks up the box."),
+    "BlockedUnlockPickup": (
+        "Unlock a door whose doorway is blocked by a ball, then pick up "
+        "the box in the far room.",
+        '"pick up the box"', "The agent picks up the box."),
+    "UnlockToUnlock": (
+        "Unlock door A whose key sits behind locked door B: two chained "
+        "unlocks, then pick up the ball.",
+        '"pick up the ball"', "The agent picks up the ball."),
+    "ActionObjDoor": (
+        "One of: pick up an object, go to an object or door, or open a "
+        "door — all within the current room.",
+        '"pick up the {color} {type}" / "go to the {color} {type}" / '
+        '"open a {color} door"', "The agent completes the instruction."),
+    "FindObjS5": (
+        "Pick up the object hidden in some room of the 3x3 maze (size-5 "
+        "rooms): potentially exhaustive exploration.",
+        '"pick up the {type}"', "The agent picks up the object."),
+    "KeyCorridor": (
+        "A ball waits behind a locked door off a corridor; the key lies "
+        "in another room. Mission text gives no hints.",
+        '"pick up the ball"', "The agent picks up the ball."),
+    "OneRoomS8": (
+        "Pick up the ball in a single size-8 room.",
+        '"pick up the ball"', "The agent picks up the ball."),
+    "Synth": (
+        "One instruction drawn from the union of PutNext / Open / GoTo / "
+        "PickUp forms; may require moving objects and explicit unlocking. "
+        "Competencies: Maze, Unblock, Unlock, GoTo, PickUp, PutNext, "
+        "Open.",
+        '"go to ..." / "pick up ..." / "open ..." / "put ... next to ..."',
+        "The agent achieves the instructed task."),
+    "SynthLoc": (
+        "Synth with location-describing language (PickupLoc-style) mixed "
+        "into object descriptions; no implicit unlocking.",
+        'Synth forms, with optional "{location}" descriptors',
+        "The agent achieves the instructed task."),
+    "SynthSeq": (
+        "SynthLoc instructions chained into sequences with and/then/after "
+        "connectives; no implicit unlocking.",
+        _GRAMMAR, "The agent achieves the instructed sequence."),
+    "MiniBossLevel": (
+        "The full Baby Language grammar over a smaller maze with a lower "
+        "locked-room probability — a cheaper BossLevel.",
+        _GRAMMAR, "The agent achieves the instructed task."),
+    "BossLevel": (
+        "Any sentence the full Baby Language grammar can produce; the "
+        "union of every competency and a superset of every other level.",
+        _GRAMMAR, "The agent achieves the instructed task."),
+    "BossLevelNoUnlock": (
+        "BossLevel without implicit unlocking: locked rooms never hide "
+        "mission targets.",
+        _GRAMMAR, "The agent achieves the instructed task."),
+}
+
+for _name, (_d, _m, _t) in _LEVEL_DOCS.items():
+    globals()[_name].__doc__ = _env_doc(
+        _d, _m, used=(0, 1, 2, 3, 4, 5),
+        termination=(_t, "Timeout (dynamic `max_steps`, scaled to the "
+                         "instruction's demands)."))
+del _name, _d, _m, _t

@@ -39,7 +39,7 @@ import torch
 
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.actions import NUM_ACTIONS
-from minigrid_tpu_torch.core.mission import tokenize
+from minigrid_tpu_torch.core.mission import detokenize, tokenize
 from minigrid_tpu_torch.core.obs import packed_to_image
 from minigrid_tpu_torch.core.types import (MISSION_LEN, EnvParams, EnvState,
                                            resolve_device)
@@ -438,6 +438,25 @@ class MiniGridEnv:
     def mission_tokens(self) -> torch.Tensor:
         return torch.as_tensor(tokenize(self.default_mission()),
                                device=self.device)
+
+    def mission_space(self):
+        """The Gymnasium mission space (the reference passes one to every
+        env constructor, e.g. minigrid/envs/doorkey.py:65); envs with
+        placeholder missions override with their template space."""
+        from minigrid_tpu_torch.core.mission_space import (ConstantMission,
+                                                           MissionSpace)
+
+        return MissionSpace(
+            mission_func=ConstantMission(self.default_mission()))
+
+    def mission_text(self, state_or_tokens, b: int = 0) -> str:
+        """The mission string of env ``b`` of a batched state, or of a
+        (L,) or (B, L) token tensor."""
+        tokens = getattr(state_or_tokens, "mission", state_or_tokens)
+        tokens = torch.as_tensor(tokens)
+        if tokens.ndim == 2:
+            tokens = tokens[b]
+        return detokenize(tokens.cpu().numpy())
 
     # -- construction ----------------------------------------------------
     def make_state(self, grid, agent_pos, agent_dir, rng,

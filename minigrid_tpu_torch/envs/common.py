@@ -6,7 +6,8 @@ channel values into a (B, 5) uint8 cell that ``core/grid.py``'s writers
 take. JAX draws with per-env bounds (``randint(key, (), lo, hi)`` under
 ``vmap``) and per-env permutations; ``torch.randint`` takes scalar bounds
 only, so :func:`randint` draws ``lo + floor(u * (hi - lo))`` per env and
-:func:`permutations` ranks uniform scores.
+:func:`permutations` ranks uniform scores. :func:`hash_scores` is the
+keyed integer hash of the draws that must be the same on both devices.
 """
 
 from __future__ import annotations
@@ -68,6 +69,36 @@ def permutations(generator: torch.Generator, n: int, k: int,
     u = torch.rand((n, k), generator=generator, device=device,
                    dtype=torch.float64)
     return u.argsort(dim=1)
+
+
+MASK32 = 0xFFFFFFFF
+# odd multipliers below 2**31, so that every product of a 32-bit value
+# stays inside int64 (the hash runs in int64 on both devices)
+_M1, _M2 = 0x7FEB352D, 0x2C1B3C6D
+_GOLDEN = 0x1E3779B9
+_CELL = 0x2545F491
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer (xorshift-multiply, as in Wellons'
+    lowbias32) on int64 tensors holding values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = (x * _M1) & MASK32
+    x = x ^ (x >> 15)
+    x = (x * _M2) & MASK32
+    return x ^ (x >> 16)
+
+
+def hash_scores(keys: torch.Tensor, salt: int, n: int) -> torch.Tensor:
+    """(B, n) int64 scores in [0, 2**32) of ``n`` cells, a hash of each
+    env's (B, 2) int32 key bits, ``salt`` and the cell: the draws of the
+    DynamicObstacles moves, StochasticActionWrapper and the WFC solver,
+    the same on the CPU and on the card."""
+    k0 = keys[:, 0].to(torch.int64) & MASK32
+    k1 = keys[:, 1].to(torch.int64) & MASK32
+    h = mix32(k0 ^ mix32(k1 ^ (((salt + 1) * _GOLDEN) & MASK32)))
+    cell = (torch.arange(1, n + 1, device=keys.device) * _CELL) & MASK32
+    return mix32(h[:, None] ^ cell[None, :])
 
 
 def take(table, idx) -> torch.Tensor:

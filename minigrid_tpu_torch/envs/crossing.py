@@ -15,12 +15,36 @@ from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class CrossingEnv(MiniGridEnv):
-    """Cross a square room from the top-left corner to the green goal in
-    the opposite corner, over ``num_crossings`` streams of lava or wall,
-    each with exactly one opening."""
+    __doc__ = env_doc(
+        """
+        The agent crosses a square room from the top-left corner to the
+        green goal square at the opposite corner. Depending on
+        ``obstacle_type``, the room is cut by one or more streams of
+        obstacles, each spanning the room horizontally or vertically with
+        exactly one safe opening; a valid route to the goal always exists.
+        With ``"lava"`` the streams are deadly (stepping in ends the
+        episode with no reward) — a standard safe-exploration benchmark.
+        With ``"wall"`` the streams are plain walls, giving an easy maze
+        for quick algorithm sanity checks. Reference:
+        minigrid/envs/crossing.py.
+        """,
+        """
+        - ``"lava"``: "avoid the lava and get to the green goal square"
+        - ``"wall"``: "find the opening and get to the green goal square"
+        """,
+        used=(0, 1, 2),
+        termination=("The agent reaches the goal.",
+                     "The agent falls into lava.",
+                     "Timeout (see `max_steps`)."),
+        configurations="""
+        In the registered ids, S is the grid side length and N the number
+        of obstacle streams to cross between start and goal.
+        """,
+    )
 
     def __init__(self, size=9, num_crossings=1, obstacle_type="lava",
                  max_steps=None, device=None, **kw):

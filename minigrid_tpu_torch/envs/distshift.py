@@ -9,11 +9,25 @@ from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class DistShiftEnv(MiniGridEnv):
-    """Start top-left, reach the goal top-right, avoid the two lava strips
-    between; the variants differ only in the second strip's row."""
+    __doc__ = env_doc(
+        """
+        A distribution-shift probe modeled on DeepMind's AI safety
+        gridworlds: start in the top-left corner, reach the goal in the
+        top-right corner, and do not step into the lava strips in between.
+        The two registered variants differ only in where the second lava
+        strip sits, so an agent trained on one can be evaluated for
+        generalization on the other. Reference: minigrid/envs/distshift.py.
+        """,
+        '"get to the green goal square"',
+        used=(0, 1, 2),
+        termination=("The agent reaches the goal.",
+                     "The agent falls into lava.",
+                     "Timeout (see `max_steps`)."),
+    )
 
     def __init__(self, width=9, height=7, agent_start_pos=(1, 1),
                  agent_start_dir=0, strip2_row=2, max_steps=None,

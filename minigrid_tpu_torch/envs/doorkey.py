@@ -11,6 +11,7 @@ from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import place
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 GOAL_CELL = [C.GOAL, C.COLOR_TO_IDX["green"], 0, 0, 0]
 YELLOW = C.COLOR_TO_IDX["yellow"]
@@ -19,10 +20,20 @@ YELLOW_KEY = [C.KEY, YELLOW, 0, 0, 0]
 
 
 class DoorKeyEnv(MiniGridEnv):
-    """A wall with one locked yellow door splits the room; the agent and a
-    yellow key start left of it, the green goal sits in the bottom-right
-    corner. The agent must take the key, unlock the door and reach the
-    goal."""
+    __doc__ = env_doc(
+        """
+        A wall with a single locked yellow door splits the room in two; the
+        agent and a yellow key start on one side and the green goal square
+        sits on the other. The agent must collect the key, unlock the door
+        and walk to the goal. The reward is sparse, which makes the larger
+        sizes hard for vanilla RL — a common testbed for curiosity and
+        curriculum methods. Reference: minigrid/envs/doorkey.py.
+        """,
+        '"use the key to open the door and then get to the goal"',
+        used=(0, 1, 2, 3, 5),
+        termination=("The agent reaches the goal.",
+                     "Timeout (see `max_steps`)."),
+    )
 
     def __init__(self, size=8, max_steps=None, device=None, **kw):
         if max_steps is None:

@@ -9,7 +9,7 @@ empty cell or the goal ends the episode with reward -1. The ball positions
 
 The moves draw from the step keys alone (``step(keys, ...)`` gets the (B,
 2) int32 key bits): an integer hash written in torch ops
-(:func:`hash_scores`) scores the neighbourhood's cells and each ball takes
+(``envs/common.py::hash_scores``) scores the neighbourhood's cells and each ball takes
 the best-scoring free one. The same inputs give the same moves on the CPU
 and on the card; the moves' distribution (uniform over the free cells), not
 JAX's threefry stream, is what matches the JAX package.
@@ -27,40 +27,34 @@ from minigrid_tpu_torch.core.step import dir_vec
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 BALL_CELL = [C.BALL, X.BLUE, 0, 0, 0]
-MASK32 = 0xFFFFFFFF
-# odd multipliers below 2**31, so that every product of a 32-bit value
-# stays inside int64 (the hash runs in int64 on both devices)
-_M1, _M2 = 0x7FEB352D, 0x2C1B3C6D
-_GOLDEN = 0x1E3779B9
-_CELL = 0x2545F491
-
-
-def mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finalizer (xorshift-multiply, as in Wellons'
-    lowbias32) on int64 tensors holding values in [0, 2**32)."""
-    x = x ^ (x >> 16)
-    x = (x * _M1) & MASK32
-    x = x ^ (x >> 15)
-    x = (x * _M2) & MASK32
-    return x ^ (x >> 16)
-
-
-def hash_scores(keys: torch.Tensor, ball: int, n: int) -> torch.Tensor:
-    """(B, n) int64 scores in [0, 2**32) of ``n`` cells for ball ``ball``,
-    a hash of each env's (B, 2) int32 key bits, the ball and the cell."""
-    k0 = keys[:, 0].to(torch.int64) & MASK32
-    k1 = keys[:, 1].to(torch.int64) & MASK32
-    h = mix32(k0 ^ mix32(k1 ^ (((ball + 1) * _GOLDEN) & MASK32)))
-    cell = (torch.arange(1, n + 1, device=keys.device) * _CELL) & MASK32
-    return mix32(h[:, None] ^ cell[None, :])
 
 
 class DynamicObstaclesEnv(MiniGridEnv):
-    """An empty room with blue balls that jump within their 3x3
-    neighbourhood every step; reach the goal without walking into one.
-    Three actions (left, right, forward); a collision costs -1."""
+    __doc__ = env_doc(
+        """
+        An empty room populated with blue balls that jump to a random free
+        cell in their 3x3 neighborhood every step. The agent must reach
+        the green goal square without ever walking into an obstacle;
+        colliding costs a -1 penalty and ends the episode. Useful for
+        studying dynamic obstacle avoidance under partial observability.
+        The ``Random`` ids start the agent at a random pose instead of the
+        fixed top-left corner. Reference:
+        minigrid/envs/dynamicobstacles.py.
+        """,
+        '"get to the green goal square"',
+        used=(0, 1, 2),
+        num_actions=3,
+        rewards="""
+        A reward of `1 - 0.9 * (step_count / max_steps)` is given on
+        success, and `0` on failure; colliding with an obstacle yields -1.
+        """,
+        termination=("The agent reaches the goal.",
+                     "The agent collides with an obstacle.",
+                     "Timeout (see `max_steps`)."),
+    )
 
     reward_range = (-1, 1)  # the collision penalty (reference :105)
 
@@ -133,7 +127,7 @@ class DynamicObstaclesEnv(MiniGridEnv):
                         cy.clamp(max=p.height - 1).long(), 0]
             free = inb & (cell == C.EMPTY) & ~((cx == ax) & (cy == ay))
             ok = free.any(1)
-            score = torch.where(free, hash_scores(keys, i, 9), -1)
+            score = torch.where(free, X.hash_scores(keys, i, 9), -1)
             pick = score.argmax(1)
             new = torch.where(ok[:, None],
                               torch.stack([cx[b, pick], cy[b, pick]], -1),

@@ -13,6 +13,7 @@ from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import place
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 GOAL_CELL = [C.GOAL, C.COLOR_TO_IDX["green"], 0, 0, 0]
 
@@ -24,9 +25,21 @@ class EmptyParams(EnvParams):
 
 
 class EmptyEnv(MiniGridEnv):
-    """A walled room with the green goal in the bottom-right corner; the
-    agent starts at ``agent_start_pos`` or, when that is None, at a uniform
-    random free cell and direction."""
+    __doc__ = env_doc(
+        """
+        A bare walled room whose only feature is the green goal square in
+        the bottom-right corner. Reaching it yields a sparse reward
+        discounted by episode length. Small sizes are the canonical "does
+        my algorithm run at all" check; large sizes probe exploration under
+        sparse reward. In the ``Random`` variants the agent's start pose is
+        re-sampled every episode; otherwise it always starts in the corner
+        opposite the goal. Reference: minigrid/envs/empty.py.
+        """,
+        '"get to the green goal square"',
+        used=(0, 1, 2),
+        termination=("The agent reaches the goal.",
+                     "Timeout (see `max_steps`)."),
+    )
 
     def __init__(self, size=8, agent_start_pos=(1, 1), agent_start_dir=0,
                  max_steps=None, device=None, **kw):

@@ -15,6 +15,7 @@ from minigrid_tpu_torch.core.step import reward_on_success
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 TYPE_NAMES = ["key", "ball"]
 SYNTAXES = ["get a", "go get a", "fetch a", "go fetch a", "you must fetch a"]
@@ -28,8 +29,40 @@ MISSIONS = mission_table([
 
 
 class FetchEnv(MiniGridEnv):
-    """Keys and balls of random colours; the mission names one (colour,
-    type) and picking it up succeeds, picking up anything else fails."""
+    __doc__ = env_doc(
+        """
+        A room scattered with keys and balls of assorted colors. The
+        mission string names exactly one (color, type) pair, and the agent
+        must pick up a matching object. Grabbing anything else ends the
+        episode with zero reward, so the task requires grounding the
+        instruction text in the observation. Reference:
+        minigrid/envs/fetch.py.
+        """,
+        '"{syntax} {color} {type}"',
+        mission_notes="""
+        {syntax}: one of "get a", "go get a", "fetch a", "go fetch a",
+        "you must fetch a".
+
+        {color}: "red", "green", "blue", "purple", "yellow" or "grey".
+
+        {type}: "key" or "ball".
+        """,
+        used=(0, 1, 2, 3),
+        termination=("The agent picks up the requested object.",
+                     "The agent picks up a different object.",
+                     "Timeout (see `max_steps`)."),
+        configurations="N in the registered ids is the object count.",
+    )
+
+    def mission_space(self):
+        """Reference fetch.py:77-88."""
+        from minigrid_tpu_torch.core.mission_space import (MissionSpace,
+                                                           TemplateMission)
+
+        return MissionSpace(
+            mission_func=TemplateMission("{} {} {}", 3),
+            ordered_placeholders=[SYNTAXES, C.COLOR_NAMES, TYPE_NAMES],
+        )
 
     def __init__(self, size=8, numObjs=3, max_steps=None, device=None,
                  **kw):

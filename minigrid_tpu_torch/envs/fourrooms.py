@@ -11,12 +11,23 @@ from minigrid_tpu_torch.core import place
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class FourRoomsEnv(MiniGridEnv):
-    """A 19x19 grid split into four rooms joined by one random gap in each
-    dividing wall; the agent and the green goal are placed uniformly (any
-    room), unless fixed positions are given."""
+    __doc__ = env_doc(
+        """
+        The classic four-rooms layout from the options/HRL literature: a
+        19x19 grid divided into four rooms connected through four gaps in
+        the dividing walls. Agent and green goal square are each placed
+        uniformly at random (any room), and the agent must navigate to the
+        goal. Reference: minigrid/envs/fourrooms.py.
+        """,
+        '"reach the goal"',
+        used=(0, 1, 2),
+        termination=("The agent reaches the goal.",
+                     "Timeout (see `max_steps`)."),
+    )
 
     def __init__(self, agent_pos=None, goal_pos=None, max_steps=100,
                  device=None, **kw):

@@ -17,6 +17,7 @@ from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
 from minigrid_tpu_torch.envs.gotoobject import adjacent
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 MISSIONS = mission_table([
     f"go to the {C.IDX_TO_COLOR[c]} door" for c in range(6)
@@ -24,9 +25,33 @@ MISSIONS = mission_table([
 
 
 class GoToDoorEnv(MiniGridEnv):
-    """A room of random extent with one door of a distinct colour in each
-    wall; ``done`` next to the door the mission names succeeds, and
-    ``done`` or ``toggle`` ends the episode."""
+    __doc__ = env_doc(
+        """
+        A single room with one door of a distinct color centered in each of
+        its four walls. The mission string names a door color; the agent
+        must walk up next to that door and signal completion with the
+        ``done`` action, earning a reward only for the correct door.
+        Reference: minigrid/envs/gotodoor.py.
+        """,
+        '"go to the {color} door"',
+        mission_notes="""
+        {color}: "red", "green", "blue", "purple", "yellow" or "grey".
+        """,
+        used=(0, 1, 2, 6),
+        termination=("The agent performs ``done`` while standing next to "
+                     "the requested door.",
+                     "Timeout (see `max_steps`)."),
+    )
+
+    def mission_space(self):
+        """Reference gotodoor.py:69-72."""
+        from minigrid_tpu_torch.core.mission_space import (MissionSpace,
+                                                           TemplateMission)
+
+        return MissionSpace(
+            mission_func=TemplateMission("go to the {} door", 1),
+            ordered_placeholders=[C.COLOR_NAMES],
+        )
 
     def __init__(self, size=5, max_steps=None, device=None, **kw):
         if size < 5:

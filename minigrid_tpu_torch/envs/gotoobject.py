@@ -17,6 +17,7 @@ from minigrid_tpu_torch.core.step import reward_on_success
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 TYPE_IDS = np.array([C.KEY, C.BALL, C.BOX], np.int64)
 TYPE_NAMES = ["key", "ball", "box"]
@@ -45,9 +46,36 @@ def adjacent(pos, target) -> torch.Tensor:
 
 
 class GoToObjectEnv(MiniGridEnv):
-    """A room with several distinct objects; the mission names one by
-    colour and type, and ``done`` next to it succeeds. ``done`` or
-    ``toggle`` ends the episode."""
+    __doc__ = env_doc(
+        """
+        A room containing several colored objects (keys, balls, boxes).
+        The mission string picks out one of them by color and type (e.g.
+        "go to the red key"); the agent earns its reward by performing the
+        ``done`` action while adjacent to the named object. Reference:
+        minigrid/envs/gotoobject.py.
+        """,
+        '"go to the {color} {obj_type}"',
+        mission_notes="""
+        {color}: "red", "green", "blue", "purple", "yellow" or "grey".
+
+        {obj_type}: "key", "ball" or "box".
+        """,
+        used=(0, 1, 2, 6),
+        termination=("The agent performs ``done`` next to the requested "
+                     "object.",
+                     "Timeout (see `max_steps`)."),
+        configurations="N in the registered ids is the object count.",
+    )
+
+    def mission_space(self):
+        """Reference gotoobject.py:72-75."""
+        from minigrid_tpu_torch.core.mission_space import (MissionSpace,
+                                                           TemplateMission)
+
+        return MissionSpace(
+            mission_func=TemplateMission("go to the {} {}", 2),
+            ordered_placeholders=[C.COLOR_NAMES, TYPE_NAMES],
+        )
 
     def __init__(self, size=6, numObjs=2, max_steps=None, device=None,
                  **kw):

@@ -12,6 +12,7 @@ from minigrid_tpu_torch.core.mission import mission_table
 from minigrid_tpu_torch.envs.common import take
 from minigrid_tpu_torch.envs.roomgrid_base import (PickupTargetMixin,
                                                    RoomGridEnv)
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 MISSIONS = {
     t: mission_table([f"pick up the {C.IDX_TO_COLOR[c]} {t}"
@@ -22,8 +23,41 @@ KIND_OF = {"key": 0, "ball": 1, "box": 2}
 
 
 class KeyCorridorEnv(PickupTargetMixin, RoomGridEnv):
-    """A corridor of rooms; the target waits behind a locked door, its key
-    in one of the rooms on the left."""
+    __doc__ = env_doc(
+        """
+        A corridor flanked by rooms on both sides; the target object waits
+        behind a locked door while the matching key lies hidden in one of
+        the other rooms. The agent must explore to find the key, unlock
+        the door and pick up the object — the mission gives no hint where
+        the key is, so the task is solvable without language. The family
+        is registered at several sizes to support curricula (it is the
+        scalable cousin of LockedRoom). Reference:
+        minigrid/envs/keycorridor.py.
+        """,
+        '"pick up the {color} {obj_type}"',
+        mission_notes="""
+        {color}: "red", "green", "blue", "purple", "yellow" or "grey".
+
+        {obj_type}: "ball" or "key".
+        """,
+        used=(0, 1, 2, 3, 5),
+        termination=("The agent picks up the target object.",
+                     "Timeout (see `max_steps`)."),
+        configurations="""
+        In the registered ids, S is the room size and R the number of
+        room rows.
+        """,
+    )
+
+    def mission_space(self):
+        """Reference keycorridor.py:83-86."""
+        from minigrid_tpu_torch.core.mission_space import (MissionSpace,
+                                                           TemplateMission)
+
+        return MissionSpace(
+            mission_func=TemplateMission("pick up the {} {}", 2),
+            ordered_placeholders=[C.COLOR_NAMES, [self.obj_type]],
+        )
 
     def __init__(self, num_rows=3, obj_type="ball", room_size=6,
                  max_steps=None, **kw):

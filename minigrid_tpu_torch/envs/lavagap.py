@@ -8,12 +8,29 @@ from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class LavaGapEnv(MiniGridEnv):
-    """One vertical strip of lava (or wall) with a single opening splits
-    the room; the agent starts top-left and must pass the gap to reach the
-    green goal in the opposite corner."""
+    __doc__ = env_doc(
+        """
+        The room is split by one vertical strip of deadly lava with a
+        single safe opening; the agent starts in one corner and must pass
+        through the gap to reach the green goal square in the opposite
+        corner. Touching lava ends the episode with no reward — a compact
+        safe-exploration task. Reference: minigrid/envs/lavagap.py.
+        """,
+        """
+        - with lava (default): "avoid the lava and get to the green goal
+          square"
+        - otherwise: "find the opening and get to the green goal square"
+        """,
+        used=(0, 1, 2),
+        termination=("The agent reaches the goal.",
+                     "The agent falls into lava.",
+                     "Timeout (see `max_steps`)."),
+        configurations="S in the registered ids is the grid side length.",
+    )
 
     def __init__(self, size, obstacle_type="lava", max_steps=None,
                  device=None, **kw):

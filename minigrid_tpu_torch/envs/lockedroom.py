@@ -13,6 +13,7 @@ from minigrid_tpu_torch.core.mission import mission_table
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 # mission indexed by (locked room colour, key room colour): the locked
 # colour names both the key and the door (lockedroom.py:165-172)
@@ -24,8 +25,37 @@ MISSIONS = mission_table([
 
 
 class LockedRoomEnv(MiniGridEnv):
-    """Six rooms off a central hallway; one is locked and holds the green
-    goal, another (named in the mission) holds the key to it."""
+    __doc__ = env_doc(
+        """
+        Six rooms open onto a central hallway; one of them is locked and
+        contains the green goal square, while another (named in the
+        mission) holds the key. The agent must parse the instruction to
+        find the key room, fetch the key, unlock the door and reach the
+        goal — very hard for plain RL without the language cue.
+        Reference: minigrid/envs/lockedroom.py.
+        """,
+        '"get the {lockedroom_color} key from the {keyroom_color} room, '
+        'unlock the {door_color} door and go to the goal"',
+        mission_notes="""
+        Each color placeholder draws from "red", "green", "blue",
+        "purple", "yellow" or "grey".
+        """,
+        used=(0, 1, 2, 3, 5),
+        termination=("The agent reaches the goal.",
+                     "Timeout (see `max_steps`)."),
+    )
+
+    def mission_space(self):
+        """Reference lockedroom.py:83-86."""
+        from minigrid_tpu_torch.core.mission_space import (MissionSpace,
+                                                           TemplateMission)
+
+        return MissionSpace(
+            mission_func=TemplateMission(
+                "get the {} key from the {} room, "
+                "unlock the {} door and go to the goal", 3),
+            ordered_placeholders=[C.COLOR_NAMES] * 3,
+        )
 
     def __init__(self, size=19, max_steps=None, device=None, **kw):
         if max_steps is None:

@@ -16,15 +16,30 @@ from minigrid_tpu_torch.core.step import reward_on_success
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 GREEN_KEY = [C.KEY, X.GREEN, 0, 0, 0]
 GREEN_BALL = [C.BALL, X.GREEN, 0, 0, 0]
 
 
 class MemoryEnv(MiniGridEnv):
-    """The agent must remember the object of the start room and step next
-    to the matching one of the two at the hallway's fork; the wrong one
-    ends the episode without reward. Pickup acts as toggle."""
+    __doc__ = env_doc(
+        """
+        A memory probe: the agent begins in a small chamber containing one
+        object (key or ball), then walks a narrow hallway that forks at
+        the far end. Each fork tip holds an object, one matching what was
+        seen in the chamber. The agent must remember the initial object
+        and step onto the matching fork tip; choosing the wrong side ends
+        the episode with no reward. ``Random`` ids randomize the hallway
+        length. Reference: minigrid/envs/memory.py.
+        """,
+        '"go to the matching object at the end of the hallway"',
+        used=(0, 1, 2, 3, 5),
+        termination=("The agent reaches the matching object.",
+                     "The agent reaches the wrong object.",
+                     "Timeout (see `max_steps`)."),
+        configurations="S in the registered ids is the grid side length.",
+    )
 
     def __init__(self, size=8, random_length=False, max_steps=None,
                  device=None, **kw):

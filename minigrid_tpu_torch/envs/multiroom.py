@@ -20,6 +20,7 @@ from minigrid_tpu_torch.core import place
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 MAX_ATTEMPTS = 256
 PROPOSALS = 8
@@ -35,9 +36,29 @@ def _sel(cond, choices):
 
 
 class MultiRoomEnv(MiniGridEnv):
-    """A chain of rooms, each entered through a coloured door from the one
-    before; the agent starts in the first, the green goal waits in the
-    last."""
+    __doc__ = env_doc(
+        """
+        A chain of connected rooms, each entered through a colored door
+        from the previous one; the green goal square waits in the last
+        room. Hard for flat RL when the chain is long, but the room count
+        scales, making it a natural curriculum axis. Constructor knobs:
+        ``minNumRooms``/``maxNumRooms`` (rooms per episode),
+        ``maxRoomSize`` (default 10), ``width``/``height`` of the map
+        (default 25), and ``max_steps`` (default ``maxNumRooms * 20``).
+        Reference: minigrid/envs/multiroom.py.
+        """,
+        '"traverse the rooms to get to the goal"',
+        used=(0, 1, 2, 5),
+        termination=("The agent reaches the goal.",
+                     "Timeout (see `max_steps`)."),
+        configurations="""
+        - ``MiniGrid-MultiRoom-N2-S4-v0`` — two small rooms
+        - ``MiniGrid-MultiRoom-N4-S5-v0`` — legacy id (misconfigured for
+          six rooms, kept for compatibility)
+        - ``MiniGrid-MultiRoom-N4-S5-v1`` — fixed four-room config
+        - ``MiniGrid-MultiRoom-N6-v0`` — six rooms
+        """,
+    )
 
     def __init__(self, minNumRooms, maxNumRooms, maxRoomSize=10, width=25,
                  height=25, max_steps=None, device=None, **kw):

@@ -31,6 +31,16 @@ class ObstructedMazeEnv(PickupTargetMixin, RoomGridEnv):
     """A blue ball in a maze of locked doors, keys in boxes, blocked
     doorways."""
 
+    def mission_space(self):
+        """Reference obstructedmaze.py:93-96."""
+        from minigrid_tpu_torch.core.mission_space import (MissionSpace,
+                                                           TemplateMission)
+
+        return MissionSpace(
+            mission_func=TemplateMission("pick up the {} ball", 1),
+            ordered_placeholders=[[C.COLOR_NAMES[0]]],
+        )
+
     def __init__(self, num_rows, num_cols, num_rooms_visited, max_steps=None,
                  **kw):
         room_size = 6
@@ -100,8 +110,8 @@ class ObstructedMaze_1Dlhb(ObstructedMazeEnv):
 
 
 class ObstructedMaze_Full(ObstructedMazeEnv):
-    """3x3 maze with quarters (obstructedmaze.py:198-255); ``v1=True``
-    takes the fixed placement order (obstructedmaze_v1.py)."""
+    """3x3 maze with quarters (obstructedmaze.py:198-255); set
+    ``v1=True`` for the fixed placement order (obstructedmaze_v1.py)."""
 
     def __init__(self, agent_room=(1, 1), key_in_box=True, blocked=True,
                  num_quarters=4, num_rooms_visited=25, v1=False, **kw):

@@ -11,11 +11,23 @@ from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
 from minigrid_tpu_torch.envs.gotoobject import TYPE_IDS
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class PlaygroundEnv(MiniGridEnv):
-    """A 3x3 arrangement of rooms joined by doors of random colours, with
-    12 random objects; no goal and no reward (interactive exploration)."""
+    __doc__ = env_doc(
+        """
+        A 3x3 arrangement of rooms joined by doors, scattered with a dozen
+        random objects. There is no goal, reward or termination condition
+        other than the step limit — it exists for interactive exploration
+        and debugging of the full object/door interaction surface.
+        Reference: minigrid/envs/playground.py.
+        """,
+        '"" (empty mission)',
+        used=(0, 1, 2, 3, 4, 5),
+        rewards="None — this environment defines no reward.",
+        termination=("Timeout (see `max_steps`).",),
+    )
 
     def __init__(self, max_steps=100, device=None, **kw):
         super().__init__(EnvParams(width=19, height=19, max_steps=max_steps,

@@ -19,6 +19,7 @@ from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
 from minigrid_tpu_torch.envs.gotoobject import (TYPE_IDS, TYPE_NAMES,
                                                 sample_distinct_type_colors)
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 # index = (move_type * 6 + move_colour) * 18 + target_type * 6 + target_colour
 MISSIONS = mission_table([
@@ -29,9 +30,39 @@ MISSIONS = mission_table([
 
 
 class PutNearEnv(MiniGridEnv):
-    """Several distinct objects, none next to another; the mission names a
-    mover and a target. Dropping the mover next to the target succeeds;
-    picking up another object, or any drop, ends the episode."""
+    __doc__ = env_doc(
+        """
+        Several objects share one room; the instruction names a mover
+        object and a fixed target object. The agent must pick up the
+        mover and drop it on a cell adjacent to the target. Easy with two
+        objects, but combining language grounding with multi-object
+        spatial reasoning makes larger counts genuinely hard. Picking up
+        the wrong object fails immediately. Reference:
+        minigrid/envs/putnear.py.
+        """,
+        '"put the {move_color} {move_type} near the {target_color} '
+        '{target_type}"',
+        mission_notes="""
+        The color slots draw from "red", "green", "blue", "purple",
+        "yellow" or "grey"; the type slots from "box", "ball" or "key".
+        """,
+        used=(0, 1, 2, 3, 4),
+        termination=("The agent picks up the wrong object.",
+                     "The agent drops the mover next to the target.",
+                     "Timeout (see `max_steps`)."),
+        configurations="N in the registered ids is the object count.",
+    )
+
+    def mission_space(self):
+        """Reference putnear.py:73-80."""
+        from minigrid_tpu_torch.core.mission_space import (MissionSpace,
+                                                           TemplateMission)
+
+        return MissionSpace(
+            mission_func=TemplateMission("put the {} {} near the {} {}", 4),
+            ordered_placeholders=[C.COLOR_NAMES, TYPE_NAMES,
+                                  C.COLOR_NAMES, TYPE_NAMES],
+        )
 
     def __init__(self, size=6, numObjs=2, max_steps=None, device=None,
                  **kw):

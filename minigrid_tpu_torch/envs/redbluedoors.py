@@ -14,6 +14,7 @@ from minigrid_tpu_torch.core.step import reward_on_success
 from minigrid_tpu_torch.core.types import EnvParams
 from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 RED_DOOR = [C.DOOR, X.RED, C.CLOSED, 0, 0]
 BLUE_DOOR = [C.DOOR, X.BLUE, C.CLOSED, 0, 0]
@@ -26,8 +27,23 @@ def door_open(grid, pos) -> torch.Tensor:
 
 
 class RedBlueDoorEnv(MiniGridEnv):
-    """A room with a red door on one side and a blue door on the other:
-    open the red one first, then the blue one; the blue one first fails."""
+    __doc__ = env_doc(
+        """
+        The agent starts at a random pose in a room that has a red door on
+        one side and a blue door on the opposite side. It must open the
+        red door first and the blue door second; opening the blue door
+        early is an immediate failure. (Counter-intuitively the task is
+        solvable without memory: the red door's open state stays visible.)
+        Reference: minigrid/envs/redbluedoors.py.
+        """,
+        '"open the red door then the blue door"',
+        used=(0, 1, 2, 5),
+        termination=("The agent opens the blue door after the red one — "
+                     "success.",
+                     "The agent opens the blue door before the red one — "
+                     "failure.",
+                     "Timeout (see `max_steps`)."),
+    )
 
     def __init__(self, size=8, max_steps=None, device=None, **kw):
         if max_steps is None:

@@ -16,6 +16,7 @@ from minigrid_tpu_torch.core.step import reward_on_success
 from minigrid_tpu_torch.envs.common import take
 from minigrid_tpu_torch.envs.roomgrid_base import (PickupTargetMixin,
                                                    RoomGridEnv)
+from minigrid_tpu_torch.envs.envdoc import env_doc
 
 BOX_MISSIONS = mission_table(
     [f"pick up the {C.IDX_TO_COLOR[c]} box" for c in range(6)])
@@ -27,8 +28,18 @@ def _box_target(box_color) -> dict:
 
 
 class UnlockEnv(RoomGridEnv):
-    """Two rooms joined by a locked door, the matching key in the agent's
-    room; opening the door succeeds."""
+    __doc__ = env_doc(
+        """
+        Two rooms joined by a locked door, with the matching key lying in
+        the agent's room. Success is simply getting the door open — the
+        minimal key/door skill in isolation, solvable without language.
+        Reference: minigrid/envs/unlock.py.
+        """,
+        '"open the door"',
+        used=(0, 1, 2, 3, 5),
+        termination=("The agent opens the door.",
+                     "Timeout (see `max_steps`)."),
+    )
 
     def __init__(self, max_steps=None, **kw):
         room_size = 6
@@ -60,8 +71,31 @@ class UnlockEnv(RoomGridEnv):
 
 
 class UnlockPickupEnv(PickupTargetMixin, RoomGridEnv):
-    """The target box waits behind a locked door; the key is in the
-    agent's room."""
+    __doc__ = env_doc(
+        """
+        The target box sits in a second room behind a locked door; the key
+        is in the agent's room. Fetch the key, unlock the door, cross
+        over and pick up the box. Solvable without language. Reference:
+        minigrid/envs/unlockpickup.py.
+        """,
+        '"pick up the {color} box"',
+        mission_notes="""
+        {color}: "red", "green", "blue", "purple", "yellow" or "grey".
+        """,
+        used=(0, 1, 2, 3, 5),
+        termination=("The agent picks up the target box.",
+                     "Timeout (see `max_steps`)."),
+    )
+
+    def mission_space(self):
+        """Reference unlockpickup.py:61-64."""
+        from minigrid_tpu_torch.core.mission_space import (MissionSpace,
+                                                           TemplateMission)
+
+        return MissionSpace(
+            mission_func=TemplateMission("pick up the {} box", 1),
+            ordered_placeholders=[C.COLOR_NAMES],
+        )
 
     def __init__(self, max_steps=None, **kw):
         room_size = 6
@@ -82,7 +116,35 @@ class UnlockPickupEnv(PickupTargetMixin, RoomGridEnv):
 
 
 class BlockedUnlockPickupEnv(PickupTargetMixin, RoomGridEnv):
-    """UnlockPickup with a ball parked in front of the door."""
+    __doc__ = env_doc(
+        """
+        Like UnlockPickup — a box to fetch from behind a locked door —
+        except a ball is parked directly in front of the door. The agent
+        must first move the ball aside, then collect the key, unlock the
+        door and pick up the box in the far room. A four-skill chain that
+        needs no language. Reference:
+        minigrid/envs/blockedunlockpickup.py.
+        """,
+        '"pick up the {color} {type}"',
+        mission_notes="""
+        {color}: "red", "green", "blue", "purple", "yellow" or "grey".
+
+        {type}: "box" or "key".
+        """,
+        used=(0, 1, 2, 3, 5),
+        termination=("The agent picks up the target box.",
+                     "Timeout (see `max_steps`)."),
+    )
+
+    def mission_space(self):
+        """Reference blockedunlockpickup.py:67-70."""
+        from minigrid_tpu_torch.core.mission_space import (MissionSpace,
+                                                           TemplateMission)
+
+        return MissionSpace(
+            mission_func=TemplateMission("pick up the {} {}", 2),
+            ordered_placeholders=[C.COLOR_NAMES, ["box", "key"]],
+        )
 
     def __init__(self, max_steps=None, **kw):
         room_size = 6

@@ -1,9 +1,8 @@
 """ID registration (counterpart of ``minigrid_tpu/register_envs.py``).
 
-The port registers the 76 MiniGrid IDs and the 96 BabyAI IDs, 172 of the JAX
-package's 178 (the 6 WaveFunctionCollapse IDs are not ported yet), with the
-same IDs and frozen kwargs (``minigrid_tpu/register_envs.py``; reference
-minigrid/__init__.py).
+The port registers the JAX package's whole catalog, 178 IDs: 76 MiniGrid,
+96 BabyAI and 6 WaveFunctionCollapse IDs, with the same IDs and frozen
+kwargs (``minigrid_tpu/register_envs.py``; reference minigrid/__init__.py).
 """
 
 from __future__ import annotations
@@ -128,6 +127,11 @@ def register_all() -> None:
     # RedBlueDoors (reference :540-548)
     register("MiniGrid-RedBlueDoors-6x6-v0", RedBlueDoorEnv, size=6)
     register("MiniGrid-RedBlueDoors-8x8-v0", RedBlueDoorEnv)
+
+    # WaveFunctionCollapse (reference :563-567)
+    from minigrid_tpu_torch.envs.wfc import WFC_PRESETS, register_wfc_presets
+
+    register_wfc_presets(WFC_PRESETS, register)
 
     _register_roomgrid()
     _register_babyai()

@@ -53,7 +53,7 @@ from minigrid_tpu_torch.envs.base import (_actions, _fresh_select,
                                           broadcast_candidates,
                                           draw_pool_row, hooked_step,
                                           select_obs, select_reset_states)
-from minigrid_tpu_torch.envs.dynamicobstacles import hash_scores
+from minigrid_tpu_torch.envs.common import hash_scores
 from minigrid_tpu_torch.ops.fused_step import check_view_size, fused_observe
 from minigrid_tpu_torch.render import get_frame
 
@@ -779,7 +779,7 @@ class StochasticActionWrapper(TransitionWrapper):
     """Keep the intended action with probability ``prob``, else take a
     random one (wrappers.py:785-806; replacements uniform over 0-5, i.e.
     never ``done``, or ``random_action``). Its draws hash the step keys
-    with this layer's salt (``envs/dynamicobstacles.py::hash_scores``):
+    with this layer's salt (``envs/common.py::hash_scores``):
     the same keys give the same actions on the CPU and on the card. The
     JAX package draws from threefry, which the port cannot replay; the two
     agree in distribution."""

@@ -27,15 +27,14 @@ from minigrid_tpu_torch.models.actor_critic import ActorCritic
 from tests.torch_port_utils import (CPU, assert_state_equal,
                                     doorkey_features)
 
-# every JAX ID but the 6 WaveFunctionCollapse ones
-PORT_IDS = [i for i in minigrid_tpu.registered_ids()
-            if not i.startswith("MiniGrid-WFC-")]
+# every JAX ID, the 6 WaveFunctionCollapse ones included
+PORT_IDS = minigrid_tpu.registered_ids()
 
 
 def test_registry_matches_jax():
-    """The 172 IDs, each with the JAX env's params, class name, default
+    """The 178 IDs, each with the JAX env's params, class name, default
     mission, action count and reward range."""
-    assert len(PORT_IDS) == 172
+    assert len(PORT_IDS) == 178
     assert minigrid_tpu_torch.registered_ids() == sorted(PORT_IDS)
     for env_id in PORT_IDS:
         p = minigrid_tpu_torch.make(env_id, device=CPU)

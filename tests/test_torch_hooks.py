@@ -38,7 +38,7 @@ from minigrid_tpu_torch.convert import layout_pool_from_entries
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.mission import detokenize
 from minigrid_tpu_torch.envs import base as B
-from minigrid_tpu_torch.envs.dynamicobstacles import hash_scores
+from minigrid_tpu_torch.envs.common import hash_scores
 from minigrid_tpu_torch.envs.empty import EmptyEnv
 from minigrid_tpu_torch.models.actor_critic import (ActorCritic, init_params,
                                                     mission_counts)

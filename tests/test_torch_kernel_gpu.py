@@ -1,8 +1,9 @@
 """The CUDA fused step kernel and its observe entry against their plain
-PyTorch versions on the card, bit-exact on every output, and the recurrent
-policy's forward card against CPU. Marked ``gpu``: they skip without a CUDA
-device. The file imports no JAX, so it also runs where only PyTorch is
-installed (``pytest tests/test_torch_kernel_gpu.py -m gpu --noconftest``)."""
+PyTorch versions on the card, bit-exact on every output, the recurrent
+policy's forward card against CPU, and the WFC solver card against CPU.
+Marked ``gpu``: they skip without a CUDA device. The file imports no JAX,
+so it also runs where only PyTorch is installed (``pytest
+tests/test_torch_kernel_gpu.py -m gpu --noconftest``)."""
 
 from __future__ import annotations
 
@@ -53,6 +54,8 @@ def cuda_device():
     ("BabyAI-BossLevel-v0", "uniform", 4096, False),
     ("BabyAI-BossLevel-v0", "interact", 1001, False),
     ("MiniGrid-ObstructedMaze-Full-v0", "interact", 4096, False),
+    # WFC's 25x25 layouts, with the pooled row (no step hooks)
+    ("MiniGrid-WFC-ObstaclesAngular-v0", "interact", 1024, True),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, env_id, kind, B, reset):
     _check_case(cuda_device, env_id, kind, B, reset)
@@ -391,3 +394,30 @@ def test_wrapped_pooled_steps_on_card_match_cpu(cuda_device, stack):
     assert (KERNEL.launches - counts[0],
             KERNEL.observe_launches - counts[1]) == (T, observes)
     assert stack != "NoDeath" or penalties > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset,options", [
+    ("MazeSimple", {"loc_heuristic": "spiral", "choice_heuristic": "lexical"}),
+    ("ObstaclesAngular", {}),
+    ("ObstaclesBlackdots", {"backtracking": True,
+                            "global_constraint": "allpatterns"})])
+def test_wfc_solver_on_card_matches_cpu(cuda_device, preset, options):
+    """The WFC solver from the same keys on the card and on the CPU (its
+    draws are hashes of the keys): grids and ``ok`` bit-exact, and the
+    layouts built from them."""
+    from minigrid_tpu_torch.core import constants as C
+    from minigrid_tpu_torch.envs.wfc import WFCEnv
+    from minigrid_tpu_torch.envs.wfc import solver as S
+
+    env = WFCEnv(wfc_config=preset, size=14, device=cuda_device)
+    cpu_env = WFCEnv(wfc_config=preset, size=14, device="cpu")
+    keys = random_keys(env.generator(0), (32, 2), cuda_device)
+    args = (env._adj, env._weights, (12, 12), env.config.output_periodic)
+    grid, ok = S.solve(keys, *args, **options)
+    grid_c, ok_c = S.solve(keys.cpu(), *args, **options)
+    assert torch.equal(grid.cpu(), grid_c) and torch.equal(ok.cpu(), ok_c)
+    st = env.layout(env.generator(1), grid)
+    st_c = cpu_env.layout(cpu_env.generator(1), grid_c)
+    assert torch.equal(st.grid.cpu()[..., 0] == C.WALL,
+                       st_c.grid[..., 0] == C.WALL)

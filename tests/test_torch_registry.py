@@ -1,6 +1,6 @@
 """The port's registry (minigrid_tpu_torch/register_envs.py) against the
-JAX package's: the ID set (every JAX ID but the 6 WaveFunctionCollapse
-ones), each ID's constructor attributes, keyword overrides, and every ID
+JAX package's: the ID set (all 178 JAX IDs), each ID's constructor
+attributes, keyword overrides, and every ID
 reset and stepped on the CPU through each auto-reset mode (the per-ID
 params, class names and missions are in
 tests/test_torch_envs.py::test_registry_matches_jax).
@@ -23,18 +23,17 @@ from tests.torch_port_utils import CPU
 
 pytestmark = pytest.mark.usefixtures("share_cpu")
 
-NOT_PORTED = "MiniGrid-WFC-"  # the WaveFunctionCollapse IDs
 # constructor attributes the generators and hooks read: the JAX env's public
 # attributes of these types
 SIMPLE = (int, str, bool, float, tuple, type(None))
 
 
 def test_ported_ids_are_the_jax_ids_of_these_families():
-    want = sorted(i for i in minigrid_tpu.registered_ids()
-                  if not i.startswith(NOT_PORTED))
+    want = sorted(minigrid_tpu.registered_ids())
     assert minigrid_tpu_torch.registered_ids() == want
-    assert len(want) == 172
-    assert sum(i.startswith("MiniGrid-") for i in want) == 76
+    assert len(want) == 178
+    assert sum(i.startswith("MiniGrid-WFC-") for i in want) == 6
+    assert sum(i.startswith("MiniGrid-") for i in want) == 82
     assert sum(i.startswith("BabyAI-") for i in want) == 96
 
 
@@ -105,5 +104,7 @@ def test_make_passes_keyword_overrides():
     env = minigrid_tpu_torch.make("MiniGrid-MultiRoom-N6-v0", device=CPU,
                                   view_size=9)
     assert env.params.view_size == 9 and env.params.width == 25
+    missing = "MiniGrid-NoSuchEnv-v0"  # an ID neither package registers
+    assert missing not in minigrid_tpu.registered_ids()
     with pytest.raises(KeyError, match="Unknown environment"):
-        minigrid_tpu_torch.make("MiniGrid-WFC-MazeSimple-v0", device=CPU)
+        minigrid_tpu_torch.make(missing, device=CPU)
