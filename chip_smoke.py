@@ -89,7 +89,22 @@ Phases, each fatal on failure:
    (Empty-5x5 fresh, ActorCriticRNN(hidden=64), 30 updates); the imitation
    pipeline: 300 bot demos of GoToRedBallGrey generated on the card,
    behaviour cloning (accuracy > 0.9) and the greedy success rate (> 0.5)
-   with the eval's cap derived from the episodes' budgets.
+   with the eval's cap derived from the episodes' budgets;
+7. the multi-device layer (``parallel/``) on the one card: 2 ranks sharing
+   it over gloo, each rolling out its 2048 envs of a pooled DoorKey-8x8
+   rollout (B=4096, T=128, uniform actions) bit-exact against the
+   one-process rollout with no collective call; one update of
+   ActorCritic(256) in f32 and bf16 on a fixed trajectory over the 2 ranks
+   against one process (the ranks' parameters bit-equal; f32 within 1e-5,
+   bf16 by the update's relative error, which a known-wrong control must
+   fail), with the gradient all-reduce's time; the distributed train step
+   on the 2 ranks (its launches) and how many actions of a policy-driven
+   rollout differ; ``train(devices=2)`` for 3 updates beside one process
+   (ranks sharing a card: no scaling number); the train step in a world
+   of one rank over NCCL, bit-equal to gloo, against the step without a
+   mesh in f32 and bf16 (on 2 cards also the update and ``train`` over
+   NCCL); ``dryrun_multichip`` on (2, 1) and (2, 2) meshes, its metrics
+   equal on every rank (phase 5 times the kernel at a rank's B=2048).
 
 The line before the last is the card as ``nvidia-smi`` reports it; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -726,6 +741,492 @@ def wfc_product_ms(preset="ObstaclesAngular", B=BATCH, shape=(23, 23)):
             lambda: torch.matmul(x, adj_t[0]), 20)
     out["product_flop"] = 2 * B * shape[0] * shape[1] * P * P  # unpadded
     return out
+
+
+# --- phase 7: the multi-device layer -----------------------------------------
+# the ranks of a 2-rank group sharing the card (gloo) and this process run
+# the same functions with the same seeds; each rank keeps its block of B
+P7_RANKS = 2
+P7_DTYPES = ("float32", "bfloat16")
+# an update (or a train step) against its one-process counterpart from the
+# same parameters. float32: the max abs parameter difference within 1e-5
+# (summation order; the CPU tests hold the same). bfloat16: forwards at
+# B/2 rows may round a gradient element otherwise, and Adam turns a
+# gradient near its eps into a step of order lr, so no abs bound tells a
+# right update from a wrong one; it is held by the update's relative
+# error |p - p_one| / |p_one - p_init| over all parameters. The bound lies
+# between the sound runs' readings and those of a known-wrong control
+# (each rank's update of its own block without the collectives: local
+# advantage statistics, local means, no gradient all-reduce), and the
+# control must fail the check of its dtype in every run. On an H100 80GB
+# HBM3 at 700 W the sound bf16 runs read 3.5e-05 to 0.0225 and the
+# control 0.658 (f32: 0.665, 1.89e-03 abs)
+P7_F32_TOL = 1e-5
+P7_BF16_REL = 0.1
+
+
+class CountDistCalls:
+    """Counts the calls of every public function of ``torch.distributed``
+    while in its ``with`` block."""
+
+    def __enter__(self):
+        import inspect
+
+        import torch.distributed as dist
+
+        self.dist, self.calls = dist, 0
+        self.saved = {k: f for k, f in vars(dist).items()
+                      if inspect.isfunction(f) and not k.startswith("_")}
+
+        def counted(f):
+            def wrapper(*a, **kw):
+                self.calls += 1
+                return f(*a, **kw)
+            return wrapper
+
+        for k, f in self.saved.items():
+            setattr(dist, k, counted(f))
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.saved.items():
+            setattr(self.dist, k, f)
+
+
+def p7_env():
+    import minigrid_tpu_torch as mt
+
+    return mt.make(ENV_ID, device="cuda").packed()
+
+
+def p7_random_rollout(mesh=None):
+    """7a: DoorKey-8x8's pooled rollout (B=4096 staggered, T=128, a 1024
+    pool) with uniform actions, of the mesh's data rank or of this
+    process: (chunk as numpy, (step, observe) launches, torch.distributed
+    calls)."""
+    import torch
+
+    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    from minigrid_tpu_torch.parallel import mesh as M
+    from minigrid_tpu_torch.parallel.rollout import make_rollout
+
+    env = p7_env()
+    g = env.generator(SEED + 70)
+    pool = env.make_pool(g, POOL_SIZE)
+    obs, st = env.reset_staggered(g, BATCH)
+    if mesh is not None:
+        obs, st = M.shard_batch(mesh, (obs, st))
+    rollout = make_rollout(env, None, ROLLOUT_LEN, pooled=True, mesh=mesh)
+    torch.cuda.synchronize()
+    zero_counts()
+    with CountDistCalls() as calls:
+        st, obs, chunk = rollout(None, st, obs, env.generator(SEED + 71),
+                                 pool)
+    torch.cuda.synchronize()
+    out = {"reward": chunk.reward, "action": chunk.action,
+           "done": chunk.done, "packed": chunk.obs["packed"],
+           "pool": pool.grid}
+    return ({k: v.cpu().numpy() for k, v in out.items()},
+            (KERNEL.launches, KERNEL.observe_launches), calls.calls)
+
+
+def p7_update(dtype_name: str, mesh=None, collectives: bool = True):
+    """7b: one update (PPOConfig(): 1 epoch of 4 rotate minibatches) of
+    ActorCritic(256) on a fixed pooled DoorKey-8x8 trajectory (B=4096,
+    T=128) that its initial weights collected; on the mesh's data rank's
+    block of envs or in this process. ``collectives=False`` is the
+    known-wrong control: the rank updates its block alone. Returns the
+    parameters after and before (numpy), the trajectory's digest and the
+    update's seconds."""
+    import torch
+
+    from minigrid_tpu_torch.models import ppo as P
+    from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
+                                                        init_params)
+    from minigrid_tpu_torch.parallel import mesh as M
+
+    dtype = getattr(torch, dtype_name)
+    env = p7_env()
+    g = env.generator(SEED + 72)
+    model = init_params(ActorCritic(hidden=256, dtype=dtype, device="cuda"),
+                        g)
+    init = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    pool = env.make_pool(g, POOL_SIZE)
+    obs, st = env.reset_staggered(g, BATCH)
+    noise = P.sample_rollout_noise(g, pool, BATCH, ROLLOUT_LEN,
+                                   model.num_actions)
+    st, obs, traj, _ = P.rollout(model, env, st, obs, noise, "pooled")
+    digest = (int(traj.action.sum()), int(traj.done.sum()),
+              float(traj.log_prob.double().sum()),
+              float(traj.value.double().sum()))
+    if mesh is not None:
+        rows = mesh.batch_slice(BATCH)
+        traj = P.Transition(
+            {k: v[:, rows] for k, v in traj.obs.items()},
+            *(v[:, rows] for v in traj[1:6]))
+        obs = M.shard_batch(mesh, obs)
+    cfg = P.PPOConfig(num_envs=BATCH, rollout_len=ROLLOUT_LEN)
+    opt = P.make_optimizer(model, cfg)
+    shared = torch.Generator(device="cuda").manual_seed(SEED + 73)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P.ppo_update(model, opt, cfg, traj, obs, shared,
+                 mesh=mesh if collectives else None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {"params": {k: v.cpu().numpy()
+                       for k, v in model.state_dict().items()},
+            "init": init, "digest": digest, "secs": secs}
+
+
+def p7_policy_actions(mesh=None):
+    """The first rollout of a pooled DoorKey-8x8 train step at full width
+    (bf16 ActorCritic(256)): its actions, of the data rank or of this
+    process."""
+    import torch
+
+    from minigrid_tpu_torch.models import ppo as P
+    from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
+                                                        init_params)
+    from minigrid_tpu_torch.parallel import mesh as M
+
+    env = p7_env()
+    g = env.generator(SEED + 74)
+    model = init_params(ActorCritic(hidden=256, device="cuda"), g)
+    pool = env.make_pool(g, POOL_SIZE)
+    obs, st = env.reset_staggered(g, BATCH)
+    noise = P.sample_rollout_noise(g, pool, BATCH, ROLLOUT_LEN,
+                                   model.num_actions)
+    if mesh is not None:
+        obs, st = M.shard_batch(mesh, (obs, st))
+        noise = noise.shard(mesh.batch_slice(BATCH))
+    traj = P.rollout(model, env, st, obs, noise, "pooled")[2]
+    return traj.action.cpu().numpy()
+
+
+def p7_all_reduce_ms(mesh, numel: int, reps: int = 20) -> float:
+    """Host ms of one all-reduce of a float32 bucket of ``numel`` entries
+    on the card over the data ranks (synchronised, after a warm-up)."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.zeros(numel, device="cuda")
+    dist.all_reduce(flat, group=mesh.data_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(flat, group=mesh.data_group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def multi_device_rank(parts=("a", "b", "step", "actions",
+                             "dryrun")) -> dict:
+    """Phase 7 on one rank of a group of 2 (spawned by ``parallel.mesh.
+    spawn``): the random-policy rollout (7a), the f32 and bf16 updates and
+    their controls (7b), the gradient all-reduce's time, the distributed
+    train step, the policy's actions, and the dry run on the (2, 1) mesh
+    (7e)."""
+    import torch
+
+    from minigrid_tpu_torch.parallel import mesh as M
+    from minigrid_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = M.make_mesh(P7_RANKS)
+    out = {"rank": mesh.rank}
+    if "a" in parts:
+        out["a"] = p7_random_rollout(mesh)
+    if "b" in parts:
+        out["b"] = {d: p7_update(d, mesh) for d in P7_DTYPES}
+        out["b_control"] = {d: p7_update(d, mesh, collectives=False)
+                            ["params"] for d in P7_DTYPES}
+        numel = sum(v.size for v in out["b"]["float32"]["params"].values())
+        out["all_reduce"] = (numel * 4, p7_all_reduce_ms(mesh, numel))
+    if "step" in parts:
+        out["step"] = p7_train_step(mesh)
+    if "actions" in parts:
+        out["actions"] = p7_policy_actions(mesh)
+    if "dryrun" in parts:
+        out["dryrun"] = dryrun_multichip(P7_RANKS, device="cuda")[0]
+    return out
+
+
+def p7_train_step(mesh=None, dtype_name: str = "bfloat16"):
+    """One pooled DoorKey-8x8 train step at full width (ActorCritic(256)
+    in ``dtype_name``, PPOConfig()), distributed over ``mesh`` or not: the
+    parameters after and before (numpy) and the (step, observe) launches
+    counted from 0 just before the step."""
+    import torch
+
+    from minigrid_tpu_torch.models import ppo as P
+    from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
+                                                        init_params)
+    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    from minigrid_tpu_torch.parallel import mesh as M
+
+    env = p7_env()
+    g = env.generator(SEED + 75)
+    model = init_params(ActorCritic(hidden=256,
+                                    dtype=getattr(torch, dtype_name),
+                                    device="cuda"), g)
+    init = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    cfg = P.PPOConfig(num_envs=BATCH, rollout_len=ROLLOUT_LEN)
+    opt = P.make_optimizer(model, cfg)
+    pool = env.make_pool(g, POOL_SIZE)
+    obs, st = env.reset_staggered(g, BATCH)
+    if mesh is not None:
+        obs, st = M.shard_batch(mesh, (obs, st))
+    step = P.make_train_step(env, model, cfg, opt, resets="pooled",
+                             mesh=mesh)
+    torch.cuda.synchronize()
+    zero_counts()
+    step(st, obs, g, pool)
+    torch.cuda.synchronize()
+    return {"params": {k: v.cpu().numpy()
+                       for k, v in model.state_dict().items()},
+            "init": init,
+            "launches": (KERNEL.launches, KERNEL.observe_launches)}
+
+
+def p7_world_of_one(backend: str) -> dict:
+    """7d: the distributed train step, f32 and bf16, in a world of one
+    rank over ``backend``."""
+    import torch.distributed as dist
+
+    from minigrid_tpu_torch.parallel import mesh as M
+
+    M.init_ranks(1, backend, "cuda")
+    try:
+        mesh = M.make_mesh(1)
+        return {d: p7_train_step(mesh, d) for d in P7_DTYPES}
+    finally:
+        dist.destroy_process_group()
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    import numpy as np
+
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+               for k in a)
+
+
+def update_rel_err(got: dict, want: dict, init: dict) -> float:
+    """|got - want| / |want - init| over all parameters (L2, float64)."""
+    import numpy as np
+
+    num = sum(float(((got[k].astype(np.float64) - want[k]) ** 2).sum())
+              for k in want)
+    den = sum(float(((want[k].astype(np.float64) - init[k]) ** 2).sum())
+              for k in want)
+    return math.sqrt(num / den)
+
+
+def p7_compare(got: dict, want: dict, dtype_name: str) -> tuple:
+    """(max abs param diff, relative error, whether the dtype's check
+    holds) of ``got`` against ``want`` (dicts of params and init)."""
+    diff = max_abs_diff(got["params"], want["params"])
+    rel = update_rel_err(got["params"], want["params"], want["init"])
+    ok = (diff <= P7_F32_TOL if dtype_name == "float32"
+          else rel <= P7_BF16_REL)
+    return diff, rel, ok
+
+
+def p7_bound(dtype_name: str) -> str:
+    return (f"max abs diff <= {P7_F32_TOL:.0e}" if dtype_name == "float32"
+            else f"relative error <= {P7_BF16_REL}")
+
+
+def multi_device_phase(card: str, kind: str) -> dict:
+    """Phase 7: the multi-device layer on the card (module docstring). Every
+    run is on the card: 2 ranks sharing it over gloo, a world of one over
+    NCCL, the dry run's (2, 1) and (2, 2) meshes; the seconds on the
+    script's clock are ``multi_device_secs``. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch.models.ppo import PPOConfig
+    from minigrid_tpu_torch.models.train import TrainConfig, train
+    from minigrid_tpu_torch.parallel import mesh as M
+    from minigrid_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t7 = time.perf_counter()
+    ref_chunk, ref_launches, ref_calls = p7_random_rollout()
+    ref_update = {d: p7_update(d) for d in P7_DTYPES}
+    ref_actions = p7_policy_actions()
+    ranks = M.spawn(multi_device_rank, P7_RANKS, "gloo", "cuda",
+                    timeout=900)
+    Bl = BATCH // P7_RANKS
+    # 7a: each rank's block of the one-process rollout, bit for bit
+    rank_launches = []
+    for r, res in enumerate(ranks):
+        chunk, launched, calls = res["a"]
+        rows = slice(r * Bl, (r + 1) * Bl)
+        for k in ("reward", "action", "done", "packed"):
+            if not np.array_equal(chunk[k], ref_chunk[k][:, rows]):
+                raise AssertionError(f"7a: rank {r}'s {k} differs from its "
+                                     "rows of the one-process rollout")
+        if not np.array_equal(chunk["pool"], ref_chunk["pool"]):
+            raise AssertionError(f"7a: rank {r}'s layout pool differs")
+        if calls != 0:
+            raise AssertionError(f"7a: rank {r}'s rollout made {calls} "
+                                 "torch.distributed calls")
+        if launched != (ROLLOUT_LEN, 0):
+            raise AssertionError(f"7a: rank {r} launched {launched}")
+        rank_launches.append(launched)
+    print(f"7a. pooled random-policy rollout of {short(ENV_ID)}, B={BATCH} "
+          f"over {P7_RANKS} gloo ranks sharing {kind} (B={Bl} a rank, "
+          f"T={ROLLOUT_LEN}): each rank's block equals the one-process "
+          f"rollout bit for bit (reward, action, done, packed obs; "
+          f"{int(ref_chunk['done'].sum())} episodes ended), the layout "
+          f"pools are equal, 0 torch.distributed calls; (step, observe) "
+          f"launches by rank {rank_launches}, one process {ref_launches}")
+    # 7b: the update over 2 ranks against one process, and the control
+    update_diff, update_rel, control = {}, {}, {}
+    for d in P7_DTYPES:
+        want = ref_update[d]
+        got = [res["b"][d] for res in ranks]
+        for r, res_b in enumerate(got):
+            if res_b["digest"] != want["digest"]:
+                raise AssertionError(
+                    f"7b {d}: rank {r}'s trajectory {res_b['digest']} is "
+                    f"not this process's {want['digest']}")
+        if max_abs_diff(got[0]["params"], got[1]["params"]) != 0:
+            raise AssertionError(f"7b {d}: the ranks' parameters differ")
+        update_diff[d], update_rel[d], ok = p7_compare(got[0], want, d)
+        c_diff, c_rel, c_ok = p7_compare(
+            {"params": ranks[0]["b_control"][d]}, want, d)
+        control[d] = (c_diff, c_rel)
+        print(f"7b. one update of ActorCritic(256) {d} on a {short(ENV_ID)} "
+              f"pooled trajectory (B={BATCH}, T={ROLLOUT_LEN}, PPOConfig()) "
+              f"over {P7_RANKS} ranks against one process: max abs param "
+              f"diff {update_diff[d]:.3e}, relative error "
+              f"{update_rel[d]:.3e} (check: {p7_bound(d)}); the control "
+              f"(rank 0's block updated alone): {c_diff:.3e}, "
+              f"{c_rel:.3e}; the ranks' parameters bit-equal; update "
+              f"{got[0]['secs'] * 1e3:.1f} ms on rank 0 against "
+              f"{want['secs'] * 1e3:.1f} ms in one process (ranks sharing "
+              f"{card})")
+        if not ok:
+            raise AssertionError(f"7b {d}: fails {p7_bound(d)}")
+        if c_ok:
+            raise AssertionError(f"7b {d}: the known-wrong control passes "
+                                 f"{p7_bound(d)}")
+    grad_bytes, grad_ms = ranks[0]["all_reduce"]
+    print(f"  the gradient all-reduce: one {grad_bytes} B f32 bucket a "
+          f"minibatch, {grad_ms:.3f} ms host time over gloo between 2 "
+          f"ranks on one card (+ 2 scalar all-reduces a minibatch, 1 for "
+          f"the metrics an update; {card})")
+    # the distributed train step on the 2 ranks, each rank's launches
+    # counted from 0 just before its step
+    step_launches = [res["step"]["launches"] for res in ranks]
+    if max_abs_diff(ranks[0]["step"]["params"],
+                    ranks[1]["step"]["params"]) != 0:
+        raise AssertionError("the 2 ranks' train steps left different "
+                             "parameters")
+    if any(n != (ROLLOUT_LEN, 0) for n in step_launches):
+        raise AssertionError(f"the 2-rank train step launched "
+                             f"{step_launches}")
+    actions = np.concatenate([res["actions"] for res in ranks], axis=1)
+    differ = int((actions != ref_actions).sum())
+    print(f"  actions of a policy-driven train step's rollout (bf16, "
+          f"B={BATCH}, T={ROLLOUT_LEN}) that differ between {P7_RANKS} "
+          f"ranks and one process: {differ} of {actions.size} (the "
+          f"policy's GEMMs at B={Bl} rows round otherwise; not asserted)")
+    # 7c: train(devices=2) over gloo on the one card, and in one process
+    tcfg = TrainConfig(total_env_steps=3 * BATCH * ROLLOUT_LEN,
+                       ppo=PPOConfig(num_envs=BATCH,
+                                     rollout_len=ROLLOUT_LEN), log_every=1)
+    _, h2 = train(ENV_ID, dataclasses.replace(tcfg, devices=P7_RANKS),
+                  backend="gloo")
+    _, h1 = train(ENV_ID, tcfg)
+    for h in (h1, h2):
+        if len(h) != 3 or not all(math.isfinite(v) for m in h
+                                  for v in m.values()):
+            raise AssertionError(f"7c: history {h}")
+    train_rates = (h2[-1]["env_steps_per_s"], h1[-1]["env_steps_per_s"])
+    print(f"7c. train({short(ENV_ID)}, devices={P7_RANKS}, num_envs="
+          f"{BATCH}), 3 updates, {P7_RANKS} gloo ranks SHARING one card "
+          f"(not a scaling number): {train_rates[0]:.0f} env-steps/s; one "
+          f"process: {train_rates[1]:.0f} env-steps/s (spawn and set-up "
+          f"outside the clock, the first update's warm-up inside; host "
+          f"clock; {card})")
+    # 7d: a world of one rank over NCCL, and over gloo, bit for bit; each
+    # against the step without a mesh, f32 and bf16
+    nccl, gloo = p7_world_of_one("nccl"), p7_world_of_one("gloo")
+    plain = {d: p7_train_step(None, d) for d in P7_DTYPES}
+    step_rel = update_rel_err(ranks[0]["step"]["params"],
+                              plain["bfloat16"]["params"],
+                              plain["bfloat16"]["init"])
+    print(f"  the train step (bf16) over {P7_RANKS} ranks against one "
+          f"process: relative error {step_rel:.3e} (a reading: the "
+          f"policy's actions may differ); (step, observe) launches by "
+          f"rank {step_launches}")
+    world_launches, world = [], {}
+    for d in P7_DTYPES:
+        if max_abs_diff(nccl[d]["params"], gloo[d]["params"]) != 0:
+            raise AssertionError(f"7d {d}: a world of one over NCCL differs "
+                                 "from gloo")
+        diff, rel, ok = p7_compare(nccl[d], plain[d], d)
+        world[d] = (diff, rel)
+        world_launches += [nccl[d]["launches"], gloo[d]["launches"]]
+        print(f"7d. the distributed pooled train step of {short(ENV_ID)} "
+              f"{d} at B={BATCH} in a world of one rank: NCCL == gloo bit "
+              f"for bit; against the step without a mesh: max abs param "
+              f"diff {diff:.3e}, relative error {rel:.3e} (check: "
+              f"{p7_bound(d)}); (step, observe) launches NCCL "
+              f"{nccl[d]['launches']}, gloo {gloo[d]['launches']}")
+        if not ok:
+            raise AssertionError(f"7d {d}: fails {p7_bound(d)}")
+    if torch.cuda.device_count() >= 2:
+        nccl_ranks = M.spawn(multi_device_rank, P7_RANKS, "nccl", "cuda",
+                             args=(("b",),), timeout=900)
+        for d in P7_DTYPES:
+            diff, rel, ok = p7_compare(nccl_ranks[0]["b"][d],
+                                       ref_update[d], d)
+            print(f"  7b over NCCL on {P7_RANKS} cards, {d}: max abs param "
+                  f"diff {diff:.3e}, relative error {rel:.3e}")
+            if not ok:
+                raise AssertionError(f"7b NCCL {d}: fails {p7_bound(d)}")
+        _, hn = train(ENV_ID, dataclasses.replace(tcfg, devices=P7_RANKS))
+        print(f"  7c over NCCL on {P7_RANKS} cards: "
+              f"{hn[-1]['env_steps_per_s']:.0f} env-steps/s ({card})")
+    else:
+        print(f"  the 2-card NCCL runs of 7b and 7c were not made: this "
+              f"machine has {torch.cuda.device_count()} card")
+    # 7e: the dry run on the (2, 1) mesh (in the group above) and the
+    # (2, 2) mesh (4 gloo ranks on the card): finite metrics, equal on
+    # every rank (global, and the model ranks of a data rank hold the
+    # same envs)
+    dry = {"(2, 1)": [res["dryrun"] for res in ranks],
+           "(2, 2)": dryrun_multichip(4, backend="gloo", device="cuda")}
+    for mesh_shape, res in dry.items():
+        if not all(math.isfinite(v) for m in res[0].values()
+                   for v in m.values()):
+            raise AssertionError(f"7e {mesh_shape}: {res[0]}")
+        if any(r != res[0] for r in res):
+            raise AssertionError(f"7e {mesh_shape}: the ranks' metrics "
+                                 f"differ: {res}")
+        print(f"7e. dryrun_multichip on a {mesh_shape} mesh of gloo ranks "
+              f"sharing the card: {', '.join(res[0])} OK, the metrics "
+              f"equal on all {len(res)} ranks")
+    multi_device_secs = time.perf_counter() - t7
+    print(f"7. multi-device on the script's clock: {multi_device_secs:.1f} "
+          f"s")
+    multi_device = {
+        "ranks_launches": rank_launches,
+        "ranks_step_launches": step_launches,
+        "world_of_one_launches": world_launches,
+        "update_max_abs_diff": update_diff,
+        "update_rel_err": update_rel, "control": control,
+        "all_reduce_bytes": grad_bytes, "all_reduce_ms": grad_ms,
+        "actions_differ": differ, "actions": int(actions.size),
+        "step_rel_err_2_ranks": step_rel,
+        "train_env_steps_per_s_2_ranks_one_card": train_rates[0],
+        "train_env_steps_per_s_one_process": train_rates[1],
+        "world_of_one_vs_plain": world,
+        "multi_device_secs": multi_device_secs}
+    return multi_device
 
 
 def main() -> int:
@@ -1719,6 +2220,42 @@ def main() -> int:
           f"{observe_bytes(st0, run_o()) / 1e6:.2f} MB; plain version "
           f"{plain_ms_o * 1e3:.1f} us)")
 
+    # the shape each of phase 7's 2 ranks launches: B=2048 (a profiler
+    # session late in the script drops records, so it is timed here)
+    Bl = BATCH // P7_RANKS
+    _, st_half = env.reset(g, Bl)
+    a_half = torch.randint(0, 7, (1, Bl), generator=g, device="cuda",
+                           dtype=torch.int32)
+    run_half = lambda: _fused_rollout_cuda(p, st_half, a_half, False,
+                                           rows1.grid, rows1.scal)
+    ms_half = device_ms(run_half, 200)
+    bound_half, by_half = bound_ms(launch_bytes(
+        st_half, a_half, run_half(), rows1.grid, rows1.scal), Bl, V)
+    a_half128 = torch.randint(0, 7, (128, Bl), generator=g, device="cuda",
+                              dtype=torch.int32)
+    run_half128 = lambda: _fused_rollout_cuda(p, st_half, a_half128, False,
+                                              None, None)
+    ms_half128 = device_ms(run_half128, 20)
+    bound_half128, _ = bound_ms(launch_bytes(st_half, a_half128,
+                                             run_half128()), Bl * 128, V)
+    run_half_o = lambda: _fused_observe_cuda(p, st_half)
+    ms_half_o = device_ms(run_half_o, 200, kernel="fused_observe_kernel")
+    bound_half_o, _ = observe_bound_ms(st_half, run_half_o(), V)
+    plain_half = cuda_ms(lambda: fused_rollout_reference(
+        p, st_half, a_half, False, rows1.grid, rows1.scal), 10)
+    plain_half128 = cuda_ms(lambda: fused_rollout_reference(
+        p, st_half, a_half128, False), 1)
+    plain_half_o = cuda_ms(lambda: fused_observe_reference(p, st_half), 10)
+    g_half = launch_geometry(Bl, 8, 8, V, sms).group_lanes
+    print(f"  a rank's B={Bl} (phase 7), {geometry(Bl)}: T=1 + row "
+          f"{ms_half * 1e3:.2f} us (bound {bound_half * 1e3:.2f} us by "
+          f"{by_half}, plain {plain_half * 1e3:.1f} us), T=128 "
+          f"{ms_half128 * 1e3:.2f} us (bound {bound_half128 * 1e3:.2f} us, "
+          f"plain {plain_half128 * 1e3:.1f} us), observe "
+          f"{ms_half_o * 1e3:.2f} us (bound {bound_half_o * 1e3:.2f} us, "
+          f"plain {plain_half_o * 1e3:.1f} us)")
+    del st_half, a_half128
+
     # the other families' shapes at B=4096: 25x25, 16x8, see-through,
     # 22x22, 16x16; T=1 with a reset row where the family's pooled step
     # takes one, else without (the hook path)
@@ -2160,8 +2697,20 @@ def main() -> int:
     if not cap < 1 << 16:
         raise AssertionError(f"the eval's cap {cap} was not derived")
 
-    main_steps = sum(t["launches"] for t in train.values())
-    main_observes = sum(t["observe_launches"] for t in train.values())
+    # --- 7. multi-device ------------------------------------------------
+    multi_device = multi_device_phase(card, kind)
+    # phase 7's launches, each counted from 0 just before its run: the 2
+    # ranks' rollouts (7a) and train steps, and the world-of-one train
+    # steps (7d: NCCL and gloo, f32 and bf16)
+    p7_launches = (multi_device["ranks_launches"]
+                   + multi_device["ranks_step_launches"]
+                   + multi_device["world_of_one_launches"])
+
+    # the train steps' launches, with phase 7's
+    main_steps = (sum(t["launches"] for t in train.values())
+                  + sum(n[0] for n in p7_launches))
+    main_observes = (sum(t["observe_launches"] for t in train.values())
+                     + sum(n[1] for n in p7_launches))
     kernels = [{
         "name": "fused_step",
         "route": "cuda",
@@ -2171,6 +2720,18 @@ def main() -> int:
         "launches_per_train_step": {k: t["launches_per_step"]
                                     for k, t in train.items()},
         "launches_pooled_rollout": launches,
+        # phase 7: each rank's rollout and train step at B=2048, and the
+        # world-of-one steps (NCCL f32, gloo f32, NCCL bf16, gloo bf16)
+        "launches_multi_device": {
+            "rank_rollouts": [n[0] for n in multi_device["ranks_launches"]],
+            "rank_train_steps": [n[0] for n in
+                                 multi_device["ranks_step_launches"]],
+            "world_of_one_train_steps": [
+                n[0] for n in multi_device["world_of_one_launches"]]},
+        "ms_b2048": ms_half, "bound_ms_b2048": bound_half,
+        "plain_ms_b2048": plain_half,
+        "ms_t128_b2048": ms_half128, "bound_ms_t128_b2048": bound_half128,
+        "plain_ms_t128_b2048": plain_half128, "group_lanes_b2048": g_half,
         # the bot's batches and the demos' (the hook path, one a step)
         "launches_bot": {short(k): v["launches"][0]
                          for k, v in bot_runs.items()},
@@ -2216,6 +2777,9 @@ def main() -> int:
         "launches_bot": {short(k): v["launches"][1]
                          for k, v in bot_runs.items()},
         "launches_demos": demo_launches[1],
+        # phase 7: the observe entry at a rank's B=2048
+        "ms_b2048": ms_half_o, "bound_ms_b2048": bound_half_o,
+        "plain_ms_b2048": plain_half_o,
         "max_abs_err": observe_err,
         "ms": ms_o,
         "plain_ms": plain_ms_o,
@@ -2275,7 +2839,8 @@ def main() -> int:
                       "bot": bot_runs,
                       "generation": generated, "render": render_times,
                       "wrapped_stepping": stepping,
-                      "wrappers": wrappers, "wfc": wfc}))
+                      "wrappers": wrappers, "wfc": wfc,
+                      "multi_device": multi_device}))
     print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s from the "
           f"import of torch to the result")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ trunk in ``dtype`` (bfloat16 by default) and float32 policy/value heads.
 hidden state the caller carries across steps. Weights are float32 masters,
 cast to ``dtype`` at forward, as Flax's ``nn.Dense(dtype=bf16)`` does;
 ``convert.actor_critic_from_flax`` and ``actor_critic_rnn_from_flax`` load
-the JAX package's parameters.
+the JAX package's parameters. ``parallel.shard_params`` may split a
+model's layers over tensor-parallel ranks: it marks them with a
+``tensor_parallel`` attribute, and the forward gathers their outputs.
 """
 
 from __future__ import annotations
@@ -77,7 +79,17 @@ def encode_obs(obs: dict, dtype=torch.uint8) -> dict:
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     bias = None if layer.bias is None else layer.bias.to(dtype)
+    tp = getattr(layer, "tensor_parallel", None)
+    if tp is not None:  # its output features split over the model ranks
+        return tp.linear(x.to(dtype), layer.weight.to(dtype), bias)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _gathered(param: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x``, computed from a parameter whose last dim may be split over
+    the model ranks, gathered where it is."""
+    tp = getattr(param, "tensor_parallel", None)
+    return x if tp is None else tp.gather(x)
 
 
 def _trunk_input(obs: dict, img_in: nn.Linear, table: torch.Tensor,
@@ -98,7 +110,7 @@ def _trunk_input(obs: dict, img_in: nn.Linear, table: torch.Tensor,
     not_pad = torch.arange(VOCAB_SIZE, device=counts.device) != 0
     counts = counts.to(dt) * not_pad
     n = counts.sum(-1, keepdim=True)
-    pooled = (counts @ table.to(dt)) / n.clamp(min=1)
+    pooled = _gathered(table, counts @ table.to(dt)) / n.clamp(min=1)
 
     d = F.one_hot(obs["direction"].to(torch.int64), 4).to(dt)
     return torch.cat([x, pooled, d], dim=-1)
@@ -224,8 +236,8 @@ class ActorCriticRNN(nn.Module):
         hz = _dense(self.gru_h, h, dt)
         r = _sigmoid(xz[..., :H] + hz[..., :H])
         z = _sigmoid(xz[..., H:2 * H] + hz[..., H:2 * H])
-        n = torch.tanh(xz[..., 2 * H:] + r * (hz[..., 2 * H:]
-                                              + self.bhn.to(hz.dtype)))
+        bhn = _gathered(self.bhn, self.bhn.to(hz.dtype))
+        n = torch.tanh(xz[..., 2 * H:] + r * (hz[..., 2 * H:] + bhn))
         return (1.0 - z) * n + z * h
 
     def heads(self, h: torch.Tensor):

@@ -34,6 +34,18 @@ slab's GRU from the hidden stored at the slab's first step, re-zeroed at
 the slab's episode ends (truncated backpropagation through time), so it
 needs ``shuffle="rotate"``; the train step becomes ``train_step(env_state,
 obs, h, generator, pool=None) -> (env_state, obs, h, metrics)``.
+
+Over several ranks (``mesh``, ``parallel/mesh.py``) each rank holds its
+data rank's block of the batch. Two generators split the randomness: the
+shared one, seeded alike on every rank, draws everything that is drawn
+per env of the global batch (the step keys and the Gumbel noise, of which
+each rank keeps its block, the reset rows, the minibatch draws), so a
+pooled rollout's rank block is exactly its rows of one process's rollout;
+the local one generates the regen and fresh layouts of the rank's own
+envs. The update is the global update: the advantage statistics, the
+loss's means and the gradients are all-reduced over the data ranks, and
+every rank takes the same optimizer step. Without a mesh there are no
+collectives, and the two generators are one.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from minigrid_tpu_torch.envs.base import (LayoutPool, presample_reset_states,
                                           random_keys)
@@ -108,6 +121,13 @@ class RolloutNoise:
     gumbel: torch.Tensor      # (T, B, A) float32 action noise
     reset_rows: LayoutPool | None = None  # T broadcast reset rows (pooled)
 
+    def shard(self, rows: slice) -> "RolloutNoise":
+        """The noise of the envs ``rows`` (a data rank's block); the
+        broadcast reset rows are every env's."""
+        return dataclasses.replace(
+            self, step_keys=self.step_keys[:, rows].contiguous(),
+            gumbel=self.gumbel[:, rows].contiguous())
+
 
 def sample_rollout_noise(generator: torch.Generator, pool: LayoutPool | None,
                          num_envs: int, length: int, num_actions: int,
@@ -125,12 +145,18 @@ def sample_rollout_noise(generator: torch.Generator, pool: LayoutPool | None,
     return RolloutNoise(keys, gumbel, rows)
 
 
-def fresh_sizes(env, cfg: PPOConfig,
-                fresh_buffer: int | None = None) -> tuple[int, int]:
+def fresh_sizes(env, cfg: PPOConfig, fresh_buffer: int | None = None,
+                ranks: int = 1) -> tuple[int, int]:
     """(buffer rows, routing window) of the fresh reset, as the JAX package
     sizes them: the buffer ~1.2x the expected resets of a rollout plus 8
     sigma, the window ~2x a step's mean finishers plus 6 sigma (at least
-    32, at most the buffer)."""
+    32, at most the buffer). Over ``ranks`` data ranks, the sizes of one
+    rank's buffer: from its ``num_envs / ranks`` envs, or its share of an
+    explicit ``fresh_buffer`` (rounded up)."""
+    if ranks > 1:
+        cfg = dataclasses.replace(cfg, num_envs=cfg.num_envs // ranks)
+        if fresh_buffer is not None:
+            fresh_buffer = -(-fresh_buffer // ranks)
     if fresh_buffer is None:
         ms = int(env.params.max_steps)
         if ms > 1 << 16:
@@ -156,7 +182,8 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
     through a ``fresh_window``-row window; "regen" generates a batch from
     ``generator`` every step. Returns ``(env_state, obs, traj,
     reset_overflow)``: ``traj`` is a :class:`Transition` of (T, B, ...)
-    tensors, ``traj.obs`` the encoded observations the policy saw, and
+    tensors, ``traj.obs`` the encoded observations the policy saw (the
+    raw ones for a model with ``takes_raw_obs``), and
     ``reset_overflow`` the fresh mode's degraded resets summed over the
     rollout (a device int32 scalar, 0 in the other modes). A recurrent
     ``model`` takes the hidden state ``h`` (B, H), stores each step's input
@@ -171,7 +198,8 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
     # and fed to the policy); a wrapper's other observations (an array, a
     # dict without a view) are stored as they come, and the model takes
     # them as they are
-    std_obs = isinstance(obs, dict) and ("packed" in obs or "image" in obs)
+    std_obs = (isinstance(obs, dict) and ("packed" in obs or "image" in obs)
+               and not getattr(model, "takes_raw_obs", False))
     view_key = "packed" if std_obs and "packed" in obs else "image"
     # a mission changes only at a reset, so the pooled mode carries its
     # counts and refreshes them from the reset row (the bare row's tokens:
@@ -282,12 +310,18 @@ def replay_slab(model, mb: dict):
     return model.heads(torch.stack(outs))
 
 
-def ppo_loss(model, cfg: PPOConfig, mb: dict):
+def ppo_loss(model, cfg: PPOConfig, mb: dict, mesh=None):
     """The clipped-surrogate loss of one minibatch (a dict of the stored
     observations, action, log_prob, adv and ret over any leading shape;
     for a recurrent policy a (mbt, B) slab with its done and hidden, see
     :func:`replay_slab`); the advantage is normalised over the minibatch.
-    Returns (total, metrics) with detached metrics."""
+    Returns (total, metrics) with detached metrics.
+
+    With a ``mesh``, ``mb`` is this data rank's part of the minibatch: the
+    advantage's mean and standard deviation come from all-reduced sums
+    (the count and the sum, then the squared deviations), and each mean of
+    the loss is the local sum over the global count, so the totals of the
+    ranks (and their gradients) sum to the minibatch's."""
     if is_recurrent(model):
         logits, value = replay_slab(model, mb)
     else:
@@ -296,12 +330,23 @@ def ppo_loss(model, cfg: PPOConfig, mb: dict):
     lp = _selected_log_prob(log_probs, mb["action"])
     ratio = torch.exp(lp - mb["log_prob"])
     adv = mb["adv"]
-    norm_adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if mesh is None:
+        mean, std = adv.mean(), adv.std(correction=0)
+        average = torch.mean
+    else:
+        stats = torch.stack([adv.new_tensor(float(adv.numel())), adv.sum()])
+        dist.all_reduce(stats, group=mesh.data_group)
+        count, mean = stats[0], stats[1] / stats[0]
+        sq = torch.square(adv - mean).sum()
+        dist.all_reduce(sq, group=mesh.data_group)
+        std = torch.sqrt(sq / count)
+        average = lambda x: x.sum() / count  # noqa: E731
+    norm_adv = (adv - mean) / (std + 1e-8)
     pg1 = ratio * norm_adv
     pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * norm_adv
-    pg_loss = -torch.minimum(pg1, pg2).mean()
-    v_loss = 0.5 * torch.square(value - mb["ret"]).mean()
-    entropy = -(torch.exp(log_probs) * log_probs).sum(-1).mean()
+    pg_loss = -average(torch.minimum(pg1, pg2))
+    v_loss = 0.5 * average(torch.square(value - mb["ret"]))
+    entropy = -average((torch.exp(log_probs) * log_probs).sum(-1))
     total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
     metrics = {"loss": total, "pg_loss": pg_loss, "v_loss": v_loss,
                "entropy": entropy}
@@ -317,36 +362,76 @@ def make_optimizer(model, cfg: PPOConfig) -> torch.optim.Adam:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float,
+                         mesh=None) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place on the gradients: kept
     while the global norm is below ``max_norm``, else ``g / norm *
-    max_norm``. Returns the norm (a device scalar; no host sync)."""
+    max_norm``. Returns the norm (a device scalar; no host sync). With a
+    ``mesh`` of several model ranks, the squares of the parameters split
+    over them (``parallel.shard_params``) are all-reduced over the model
+    ranks, so each shard counts once and each replicated parameter
+    once."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    if mesh is not None and mesh.model_size > 1:
+        split = [p.grad for p in params if p.grad is not None
+                 and hasattr(p, "tensor_parallel")]
+        whole = [p.grad for p in params if p.grad is not None
+                 and not hasattr(p, "tensor_parallel")]
+        sq = sum(torch.sum(g * g) for g in split)
+        dist.all_reduce(sq, group=mesh.model_group)
+        norm = torch.sqrt(sq + sum(torch.sum(g * g) for g in whole))
+    else:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
     return norm
 
 
-def update_minibatch(model, optimizer, cfg: PPOConfig, mb: dict) -> dict:
+@torch.no_grad()
+def all_reduce_gradients_(params, group) -> None:
+    """Sum every parameter's gradient over ``group`` in place: one
+    all-reduce of one flattened buffer (a missing gradient counts as
+    zeros)."""
+    params = list(params)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    for p, g in zip(params, flat.split([g.numel() for g in grads])):
+        p.grad = g.view_as(p)
+
+
+def update_minibatch(model, optimizer, cfg: PPOConfig, mb: dict,
+                     mesh=None) -> dict:
     """One gradient step on one minibatch: the loss, its gradient, the
-    global clip-norm and the optimizer step. Returns the loss metrics."""
+    global clip-norm and the optimizer step. Returns the loss metrics.
+    With a ``mesh`` the loss is the rank's part of the global one
+    (:func:`ppo_loss`), and its gradients are summed over the data ranks
+    before the clip, so every rank takes the same step; the metrics are
+    the rank's parts."""
     optimizer.zero_grad(set_to_none=True)
-    total, metrics = ppo_loss(model, cfg, mb)
+    total, metrics = ppo_loss(model, cfg, mb, mesh)
     total.backward()
-    clip_by_global_norm_(list(model.parameters()), cfg.max_grad_norm)
+    params = list(model.parameters())
+    if mesh is not None:
+        all_reduce_gradients_(params, mesh.data_group)
+    clip_by_global_norm_(params, cfg.max_grad_norm, mesh)
     optimizer.step()
     return metrics
 
 
 def epoch_minibatches(data: dict, cfg: PPOConfig,
-                      generator: torch.Generator, offset: int | None = None):
+                      generator: torch.Generator, offset: int | None = None,
+                      mesh=None):
     """The minibatches of one epoch over ``data`` ((T, B, ...) tensors), in
     visiting order. "rotate" yields (T/n, B, ...) views of the timestep
     slabs starting at slab ``offset`` (drawn from ``generator`` when None:
     the one host sync of an epoch); "timestep" and "sample" yield
-    flattened (T*B/n, ...) gathers."""
+    flattened (T*B/n, ...) gathers. With a ``mesh``, ``data`` is a data
+    rank's block of envs and ``generator`` the shared one: "sample"
+    permutes the global samples and yields the rank's share of each
+    minibatch (its size varies; one host sync a minibatch)."""
     T, B = data["adv"].shape
     n = cfg.num_minibatches
     dev = data["adv"].device
@@ -367,22 +452,30 @@ def epoch_minibatches(data: dict, cfg: PPOConfig,
                    for k, v in shuf.items()}
     else:
         flat = {k: v.reshape(T * B, *v.shape[2:]) for k, v in data.items()}
-        perm = torch.randperm(T * B, generator=generator, device=dev)
-        mb = T * B // n
+        ranks = 1 if mesh is None else mesh.data_size
+        perm = torch.randperm(T * B * ranks, generator=generator, device=dev)
+        mb = T * B * ranks // n
         for i in range(n):
             idx = perm[i * mb:(i + 1) * mb]
+            if mesh is not None:  # global (t, b) -> this rank's t * B + b
+                lo = mesh.data_rank * B
+                t, b = idx // (B * ranks), idx % (B * ranks) - lo
+                mine = (b >= 0) & (b < B)
+                idx = t[mine] * B + b[mine]
             yield {k: v[idx] for k, v in flat.items()}
 
 
 def ppo_update(model, optimizer, cfg: PPOConfig, traj: Transition,
                last_obs: dict, generator: torch.Generator,
-               h: torch.Tensor | None = None) -> dict:
+               h: torch.Tensor | None = None, mesh=None) -> dict:
     """The update phase of a train step: GAE bootstrapped from the value of
     ``last_obs`` (for a recurrent policy, with the rollout's final hidden
     state ``h``), then ``cfg.num_epochs`` passes over the minibatches of
     ``traj``, updating ``model`` and ``optimizer`` in place. Returns the
     loss metrics averaged over the minibatches and ``mean_reward``, as
-    device scalars."""
+    device scalars. With a ``mesh``, ``traj`` is the data rank's block of
+    envs, ``generator`` the shared one, and the update and the metrics
+    are the global ones (one all-reduce for the metrics)."""
     recurrent = is_recurrent(model)
     with torch.no_grad():
         if recurrent:
@@ -398,12 +491,21 @@ def ppo_update(model, optimizer, cfg: PPOConfig, traj: Transition,
         # a rotate slab is a view of these: its start hidden is the stored
         # hidden of its first step, traj.hidden[j * mbt] for slab j
         data.update(done=traj.done, hidden=traj.hidden)
-    per_mb = [update_minibatch(model, optimizer, cfg, mb)
+    per_mb = [update_minibatch(model, optimizer, cfg, mb, mesh)
               for _ in range(cfg.num_epochs)
-              for mb in epoch_minibatches(data, cfg, generator)]
+              for mb in epoch_minibatches(data, cfg, generator, mesh=mesh)]
     metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                for k in per_mb[0]}
-    metrics["mean_reward"] = traj.reward.mean()
+    if mesh is None:
+        metrics["mean_reward"] = traj.reward.mean()
+        return metrics
+    # the ranks' parts of each metric, the reward's sum and count
+    reward = traj.reward
+    parts = torch.stack([*metrics.values(), reward.sum(),
+                         reward.new_tensor(float(reward.numel()))])
+    dist.all_reduce(parts, group=mesh.data_group)
+    metrics = dict(zip(metrics, parts[:-2]))
+    metrics["mean_reward"] = parts[-2] / parts[-1]
     return metrics
 
 
@@ -432,19 +534,27 @@ def check_config(cfg: PPOConfig, recurrent: bool = False) -> None:
 
 def make_train_step(env, model, cfg: PPOConfig, optimizer,
                     pooled: bool = False, resets: str | None = None,
-                    fresh_buffer: int | None = None):
-    """Returns ``train_step(env_state, obs, generator, pool=None) ->
-    (env_state, obs, metrics)``: one rollout of ``cfg.rollout_len`` steps in
-    the ``resets`` mode ("regen" by default; ``pooled=True`` is shorthand
-    for "pooled", which needs ``pool``), GAE, and the update of ``model``
-    and ``optimizer`` in place. ``metrics`` holds device scalars: the loss
-    terms averaged over the minibatches, ``mean_reward`` and, with fresh
-    resets, ``reset_overflow`` summed over the rollout. ``fresh_buffer``
-    overrides the fresh buffer's size (:func:`fresh_sizes`). For a
-    recurrent ``model`` it is ``train_step(env_state, obs, h, generator,
-    pool=None) -> (env_state, obs, h, metrics)``, ``h`` the hidden state
-    carried across train steps (``model.initial_state(num_envs)`` at
-    first)."""
+                    fresh_buffer: int | None = None, mesh=None):
+    """Returns ``train_step(env_state, obs, generator, pool=None,
+    local_generator=None) -> (env_state, obs, metrics)``: one rollout of
+    ``cfg.rollout_len`` steps in the ``resets`` mode ("regen" by default;
+    ``pooled=True`` is shorthand for "pooled", which needs ``pool``), GAE,
+    and the update of ``model`` and ``optimizer`` in place. ``metrics``
+    holds device scalars: the loss terms averaged over the minibatches,
+    ``mean_reward`` and, with fresh resets, ``reset_overflow`` summed over
+    the rollout. ``fresh_buffer`` overrides the fresh buffer's size
+    (:func:`fresh_sizes`). For a recurrent ``model`` it is
+    ``train_step(env_state, obs, h, generator, pool=None,
+    local_generator=None) -> (env_state, obs, h, metrics)``, ``h`` the
+    hidden state carried across train steps (``model.initial_state(
+    num_envs)`` at first).
+
+    With a ``mesh`` (``parallel.make_mesh``) this is one data rank's step:
+    ``cfg.num_envs`` is the global batch, ``env_state``, ``obs`` and ``h``
+    hold the rank's block of it, ``generator`` is the generator every rank
+    seeds alike and ``local_generator`` the rank's own (the regen and
+    fresh layouts; the fresh buffer is the rank's share); the metrics are
+    global. Without ``local_generator`` the one generator does both."""
     recurrent = is_recurrent(model)
     if resets is None:
         resets = "pooled" if pooled else "regen"
@@ -455,36 +565,52 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
     if resets in ("pooled", "fresh") and isinstance(env, Wrapper):
         # the model must take the stack's observations
         env.check_fast_paths()
-    n_buf, window = (fresh_sizes(env, cfg, fresh_buffer)
+    ranks = 1 if mesh is None else mesh.data_size
+    if cfg.num_envs % ranks:
+        raise ValueError(f"num_envs ({cfg.num_envs}) does not split over "
+                         f"{ranks} data ranks")
+    local_envs = cfg.num_envs // ranks
+    n_buf, window = (fresh_sizes(env, cfg, fresh_buffer, ranks)
                      if resets == "fresh" else (None, 32))
 
-    def step(env_state, obs, h, generator, pool):
-        if env_state.batch_size != cfg.num_envs:
+    def step(env_state, obs, h, generator, pool, local_generator):
+        if env_state.batch_size != local_envs:
             raise ValueError(f"env_state holds {env_state.batch_size} envs, "
-                             f"cfg.num_envs is {cfg.num_envs}")
+                             f"cfg.num_envs is {cfg.num_envs} over {ranks} "
+                             "data rank(s)")
         if resets == "pooled" and pool is None:
             raise ValueError("resets='pooled' needs a LayoutPool")
         noise = sample_rollout_noise(
             generator, pool if resets == "pooled" else None, cfg.num_envs,
             cfg.rollout_len, model.num_actions, device=env_state.device)
-        out = rollout(model, env, env_state, obs, noise, resets, generator,
-                      n_buf, window, h)
+        if mesh is not None:
+            noise = noise.shard(mesh.batch_slice(cfg.num_envs))
+        if local_generator is None:
+            local_generator = generator
+        out = rollout(model, env, env_state, obs, noise, resets,
+                      local_generator, n_buf, window, h)
         env_state, obs, traj, overflow = out[:4]
         h = out[4] if recurrent else None
-        metrics = ppo_update(model, optimizer, cfg, traj, obs, generator, h)
+        metrics = ppo_update(model, optimizer, cfg, traj, obs, generator, h,
+                             mesh)
         if resets == "fresh":
+            if mesh is not None:
+                dist.all_reduce(overflow, group=mesh.data_group)
             metrics["reset_overflow"] = overflow
         return env_state, obs, h, metrics
 
     if recurrent:
         def train_step(env_state, obs, h, generator: torch.Generator,
-                       pool: LayoutPool | None = None):
-            return step(env_state, obs, h, generator, pool)
+                       pool: LayoutPool | None = None,
+                       local_generator: torch.Generator | None = None):
+            return step(env_state, obs, h, generator, pool, local_generator)
     else:
         def train_step(env_state, obs, generator: torch.Generator,
-                       pool: LayoutPool | None = None):
+                       pool: LayoutPool | None = None,
+                       local_generator: torch.Generator | None = None):
             env_state, obs, _, metrics = step(env_state, obs, None,
-                                              generator, pool)
+                                              generator, pool,
+                                              local_generator)
             return env_state, obs, metrics
 
     return train_step
@@ -493,11 +619,12 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
 def make_train_loop(env, model, cfg: PPOConfig, optimizer,
                     steps_per_call: int = 8, **kw):
     """``steps_per_call`` train steps per call: ``train_loop(env_state,
-    obs, generator, pool=None) -> (env_state, obs, metrics)`` with each
-    metric stacked (K,); for a recurrent model ``train_loop(env_state, obs,
-    h, generator, pool=None) -> (env_state, obs, h, metrics)``. With pooled
-    resets the same pool serves all K steps. Keyword arguments go to
-    :func:`make_train_step`."""
+    obs, generator, pool=None, local_generator=None) -> (env_state, obs,
+    metrics)`` with each metric stacked (K,); for a recurrent model
+    ``train_loop(env_state, obs, h, generator, pool=None,
+    local_generator=None) -> (env_state, obs, h, metrics)``. With pooled
+    resets the same pool serves all K steps. Keyword arguments (``mesh``
+    among them) go to :func:`make_train_step`."""
     step = make_train_step(env, model, cfg, optimizer, **kw)
 
     def stacked(per_step):
@@ -506,21 +633,24 @@ def make_train_loop(env, model, cfg: PPOConfig, optimizer,
 
     if is_recurrent(model):
         def train_loop(env_state, obs, h, generator: torch.Generator,
-                       pool: LayoutPool | None = None):
+                       pool: LayoutPool | None = None,
+                       local_generator: torch.Generator | None = None):
             per_step = []
             for _ in range(steps_per_call):
                 env_state, obs, h, m = step(env_state, obs, h, generator,
-                                            pool)
+                                            pool, local_generator)
                 per_step.append(m)
             return env_state, obs, h, stacked(per_step)
 
         return train_loop
 
     def train_loop(env_state, obs, generator: torch.Generator,
-                   pool: LayoutPool | None = None):
+                   pool: LayoutPool | None = None,
+                   local_generator: torch.Generator | None = None):
         per_step = []
         for _ in range(steps_per_call):
-            env_state, obs, m = step(env_state, obs, generator, pool)
+            env_state, obs, m = step(env_state, obs, generator, pool,
+                                     local_generator)
             per_step.append(m)
         return env_state, obs, stacked(per_step)
 

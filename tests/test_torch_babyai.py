@@ -52,8 +52,8 @@ from tests.torch_port_utils import (share_cpu,  # noqa: F401
                                     ALL_FIELDS, CPU, action_stream,
                                     assert_state_equal, categories,
                                     chi2_same_distribution, export,
-                                    jax_layouts, reachable, to_jax_instr,
-                                    to_jax_state)
+                                    jax_env_fns, jax_layouts, reachable,
+                                    to_jax_instr, to_jax_state)
 
 pytestmark = pytest.mark.usefixtures("share_cpu")
 
@@ -266,7 +266,7 @@ def _jax_level_step(jenv, mode):
 
 def _check_level_steps(level, kind, T=24, mode=False):
     penv, pst = port_levels(level)
-    jenv = minigrid_tpu.make(level).packed()
+    jenv = jax_env_fns(level)[0]  # one JAX env a level: its step jits once
     jst = to_jax_state(pst)
     step = _jax_level_step(jenv, mode)
     acts = action_stream(kind, T, pst.batch_size, seed=11)

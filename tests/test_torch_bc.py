@@ -75,7 +75,8 @@ def test_bc_epoch_matches_jax():
     value head is left as it was."""
     d = demos(12)
     jm = JActorCritic(hidden=32, dtype=jnp.float32)
-    params0 = j_init_params(jax.random.PRNGKey(0), model=jm)
+    params0 = jax.jit(lambda k: j_init_params(k, model=jm))(
+        jax.random.PRNGKey(0))
     key = jax.random.PRNGKey(3)
     j_params, j_hist = j_behavior_clone(jm, params0, d, epochs=2,
                                         batch_size=32, lr=1e-3, key=key)
@@ -146,7 +147,8 @@ def test_eval_cap_matches_jax_on_a_babyai_level():
     n = 64
     jenv = minigrid_tpu.make(LEVEL)
     jm = JActorCritic(hidden=32, dtype=jnp.float32)
-    params = j_init_params(jax.random.PRNGKey(1), model=jm)
+    params = jax.jit(lambda k: j_init_params(k, model=jm))(
+        jax.random.PRNGKey(1))
     key = jax.random.PRNGKey(2)
     JE._RUN_CACHE.clear()
     want = JE.evaluate_success(jenv, jm, params, n_episodes=n, key=key)

@@ -85,7 +85,9 @@ def test_bot_lockstep_matches_jax(level):
         jbot, pbot = JBot(jenv), BabyAIBot(penv)
         for t in range(STEP_BUDGET):
             msg = f"{level} seed {b} step {t}"
-            ja = jbot.replan(jax.tree.map(lambda x: x[0], js))
+            # the JAX bot reads the state through numpy: hand it host
+            # arrays (no eager JAX op a step)
+            ja = jbot.replan(jax.tree.map(lambda x: np.asarray(x)[0], js))
             pa = pbot.replan(ps)
             assert pa == ja, msg
             k = jax.random.PRNGKey(t)[None]

@@ -7,6 +7,7 @@ driven by fake key events (JAX tests/test_scripts.py:20-75) and
 
 from __future__ import annotations
 
+import functools
 import pickle
 import re
 import subprocess
@@ -21,6 +22,7 @@ import jax
 
 import minigrid_tpu
 from minigrid_tpu.compat.gym_env import gym_make as jax_gym_make
+from minigrid_tpu.core import obs as jax_obs
 from minigrid_tpu.utils import introspect as JI
 
 import minigrid_tpu_torch
@@ -101,10 +103,19 @@ def test_class_doc_matches_jax(env_id):
     assert p.__doc__ == j.__doc__, env_id
 
 
+@functools.lru_cache(maxsize=None)
+def jitted_gen_obs():
+    """JAX's ``gen_obs``, jitted (its params static): what JAX's
+    ``agent_sees`` calls, compiled once per env instead of run op by op
+    (integer ops: the same observation)."""
+    return jax.jit(jax_obs.gen_obs, static_argnums=0)
+
+
 @pytest.mark.parametrize("env_id", INTROSPECT_IDS)
-def test_introspection_matches_jax(env_id):
+def test_introspection_matches_jax(env_id, monkeypatch):
     """``pprint_grid``, ``get_view_coords``, ``relative_coords``,
     ``in_view`` and ``agent_sees`` of converted JAX states, env by env."""
+    monkeypatch.setattr(jax_obs, "gen_obs", jitted_gen_obs())
     jenv, jst = jax_states(env_id, 4, seed=2, packed=False)
     pst = export(jst)
     params = jenv.params

@@ -5,6 +5,7 @@ reward within rtol 1e-6."""
 
 from __future__ import annotations
 
+import functools
 import dataclasses
 import itertools
 
@@ -33,8 +34,11 @@ from minigrid_tpu_torch.core.step import step_core as p_step_core
 from minigrid_tpu_torch.core.types import MISSION_LEN as P_MISSION_LEN
 from minigrid_tpu_torch.core.visibility import process_vis as p_process_vis
 
+from tests.torch_port_utils import share_cpu  # noqa: F401
 from tests.torch_port_utils import (action_stream, assert_state_equal,
                                     export, jax_states)
+
+pytestmark = pytest.mark.usefixtures("share_cpu")
 
 
 def test_constants_equal():
@@ -55,14 +59,20 @@ def test_constants_equal():
     assert P_MISSION_LEN == J_MISSION_LEN
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_step_core(params):
+    """JAX's ``vmap(step_core)``, jitted once per env params."""
+    return jax.jit(jax.vmap(lambda s, a: j_step_core(params, s, a)))
+
+
 @pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-8x8-v0",
                                     "MiniGrid-DoorKey-5x5-v0"])
 def test_pack_unpack_roundtrip_on_jax_grids(env_id):
     env, st = jax_states(env_id, 64)
     # interact so doors open and keys get carried (richer cell values)
-    step = jax.jit(jax.vmap(lambda s, a: j_step_core(env.params, s, a)[0]))
+    step = _jax_step_core(env.params)
     for a in action_stream("interact", 12, 64):
-        st = step(st, jnp.asarray(a))
+        st = step(st, jnp.asarray(a))[0]
     grids = np.array(st.grid)
     packed = PG.pack_cells(torch.from_numpy(grids))
     np.testing.assert_array_equal(packed.numpy(),
@@ -110,7 +120,7 @@ def _step_pair(env_id, kind, T=16, B=128):
     batched step_core side by side; compare after every step."""
     env, jst = jax_states(env_id, B)
     pst = export(jst)
-    jstep = jax.jit(jax.vmap(lambda s, a: j_step_core(env.params, s, a)))
+    jstep = _jax_step_core(env.params)
     for t, a in enumerate(action_stream(kind, T, B)):
         jst, jr, jte = jstep(jst, jnp.asarray(a))
         pst, pr, pte = p_step_core(env.params, pst, torch.from_numpy(a))
@@ -151,11 +161,17 @@ def test_step_core_reward_on_goal_matches_jax():
     assert_state_equal(pst2, jst2)
 
 
+@functools.lru_cache(maxsize=None)
+def _stepped_doorkey():
+    """DoorKey-8x8 states after 10 interaction steps on both sides (held
+    equal at every step), shared by the observation cases."""
+    return _step_pair("MiniGrid-DoorKey-8x8-v0", "interact", T=10, B=96)
+
+
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("see_through", [False, True])
 def test_gen_obs_matches_jax(packed, see_through):
-    env, jst, pst = _step_pair("MiniGrid-DoorKey-8x8-v0", "interact", T=10,
-                               B=96)
+    env, jst, pst = _stepped_doorkey()
     params = dataclasses.replace(env.params, packed_obs=packed,
                                  see_through_walls=see_through)
     jo = jax.vmap(lambda s: j_gen_obs(params, s))(jst)

@@ -24,8 +24,11 @@ from minigrid_tpu_torch.core.mission import tokenize
 from minigrid_tpu_torch.envs.base import presample_reset_states
 from minigrid_tpu_torch.models.actor_critic import ActorCritic
 
+from tests.torch_port_utils import share_cpu  # noqa: F401
 from tests.torch_port_utils import (CPU, assert_state_equal,
                                     doorkey_features)
+
+pytestmark = pytest.mark.usefixtures("share_cpu")
 
 # every JAX ID, the 6 WaveFunctionCollapse ones included
 PORT_IDS = minigrid_tpu.registered_ids()

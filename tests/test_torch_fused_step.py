@@ -29,8 +29,11 @@ from minigrid_tpu_torch.ops import fused_step as F
 from minigrid_tpu_torch.ops.fused_step import (KERNEL, fused_rollout,
                                                require_core_dynamics)
 
+from tests.torch_port_utils import share_cpu  # noqa: F401
 from tests.torch_port_utils import (CPU, action_stream, assert_state_equal,
                                     export, jax_states)
+
+pytestmark = pytest.mark.usefixtures("share_cpu")
 
 CASES = [
     ("MiniGrid-Empty-8x8-v0", "uniform"),

@@ -160,8 +160,10 @@ def test_train_smoke_with_checkpoints(tmp_path, resets, steps_per_call):
 
 
 def test_train_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train("MiniGrid-Empty-5x5-v0", TrainConfig(devices=2), device=CPU)
+    # a batch that does not split over the ranks, as JAX's sharding refuses
+    with pytest.raises(ValueError, match="does not split"):
+        train("MiniGrid-Empty-5x5-v0", TrainConfig(
+            devices=2, ppo=PPOConfig(num_envs=5)), device=CPU)
     with pytest.raises(ValueError, match="pool_size"):
         train("MiniGrid-Empty-5x5-v0", TrainConfig(resets="pooled",
                                                    pool_size=0), device=CPU)

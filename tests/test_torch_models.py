@@ -6,6 +6,8 @@ states, Gumbel noise, step keys and reset rows."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -30,27 +32,44 @@ from minigrid_tpu_torch.models.actor_critic import (ActorCritic, encode_obs,
                                                     init_params)
 from minigrid_tpu_torch.models.ppo import RolloutNoise, rollout
 
+from tests.torch_port_utils import share_cpu  # noqa: F401
 from tests.torch_port_utils import CPU, action_stream, export, jax_states
+
+pytestmark = pytest.mark.usefixtures("share_cpu")
 
 ENV_ID = "MiniGrid-DoorKey-8x8-v0"
 
 
-def _models(dtype_j, dtype_p, seed=0):
+@functools.lru_cache(maxsize=None)
+def _flax_params(dtype_j, seed):
+    """(Flax model, its params by the jitted init), once per module."""
     jm = JActorCritic(dtype=dtype_j)
-    params = j_init_params(jax.random.PRNGKey(seed), model=jm, packed=True)
+    init = jax.jit(lambda k: j_init_params(k, model=jm, packed=True))
+    return jm, init(jax.random.PRNGKey(seed))
+
+
+def _models(dtype_j, dtype_p, seed=0):
+    jm, params = _flax_params(dtype_j, seed)
     pm = ActorCritic(dtype=dtype_p, device=CPU)
     pm.load_state_dict(actor_critic_from_flax(
         jax.tree.map(np.asarray, params)))
     return jm, params, pm
 
 
-def _obs(B=64, packed=True):
-    """Observations of exported states after a few interaction steps."""
+@functools.lru_cache(maxsize=None)
+def _jax_obs(B, packed):
     env, st = jax_states(ENV_ID, B, seed=3, packed=packed)
     step = jax.jit(jax.vmap(env.step))
     keys = jax.random.split(jax.random.PRNGKey(0), B)
     for a in action_stream("interact", 6, B):
         obs, st, *_ = step(keys, st, jnp.asarray(a))
+    return obs
+
+
+def _obs(B=64, packed=True):
+    """Observations of exported states after a few interaction steps (the
+    JAX side computed once per module)."""
+    obs = _jax_obs(B, packed)
     return obs, {k: torch.from_numpy(np.array(v)) for k, v in obs.items()}
 
 

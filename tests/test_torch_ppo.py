@@ -66,7 +66,8 @@ def _batch(dtype=torch.float32, T=8, B=64, seed=0):
     its GAE: (Flax params, port model, data dict)."""
     jm = JActorCritic(dtype=jnp.bfloat16 if dtype == torch.bfloat16
                       else jnp.float32)
-    params = j_init_params(jax.random.PRNGKey(seed), model=jm, packed=True)
+    params = jax.jit(lambda k: j_init_params(k, model=jm, packed=True))(
+        jax.random.PRNGKey(seed))
     pm = ActorCritic(dtype=dtype, device=CPU)
     pm.load_state_dict(actor_critic_from_flax(jax.tree.map(np.asarray,
                                                            params)))

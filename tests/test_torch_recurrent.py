@@ -14,6 +14,7 @@ magnitude; over a BPTT loop the roundings compound)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import optax
@@ -64,25 +65,38 @@ _CACHE: dict = {}
 pytestmark = pytest.mark.usefixtures("share_cpu")
 
 
+@functools.lru_cache(maxsize=None)
+def _flax_params(jdt, seed, hidden):
+    """(Flax model, its params by the jitted init), once per module."""
+    jm = JRNN(hidden=hidden, dtype=jdt)
+    init = jax.jit(lambda k: j_init_rnn(k, model=jm, packed=True))
+    return jm, init(jax.random.PRNGKey(seed))
+
+
 def _models(dtype=torch.float32, seed=0, hidden=HIDDEN):
     """(Flax model, its params, the port model on the converted params)."""
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
-    jm = JRNN(hidden=hidden, dtype=jdt)
-    params = j_init_rnn(jax.random.PRNGKey(seed), model=jm, packed=True)
+    jm, params = _flax_params(jdt, seed, hidden)
     pm = ActorCriticRNN(hidden=hidden, dtype=dtype, device=CPU)
     pm.load_state_dict(actor_critic_rnn_from_flax(
         jax.tree.map(np.asarray, params)))
     return jm, params, pm
 
 
-def _obs(n=64):
-    """JAX observations of exported DoorKey states after a few interaction
-    steps, and the same as tensors."""
+@functools.lru_cache(maxsize=None)
+def _jax_obs(n):
     env, st = jax_states(DK8, n, seed=3)
     step = jax.jit(jax.vmap(env.step))
     keys = jax.random.split(jax.random.PRNGKey(0), n)
     for a in action_stream("interact", 6, n):
         obs, st, *_ = step(keys, st, jnp.asarray(a))
+    return obs
+
+
+def _obs(n=64):
+    """JAX observations of exported DoorKey states after a few interaction
+    steps, and the same as tensors (the JAX side once per module)."""
+    obs = _jax_obs(n)
     return obs, {k: torch.from_numpy(np.array(v)) for k, v in obs.items()}
 
 
@@ -187,8 +201,9 @@ def test_init_params_rnn_follows_flax_initializers():
     m = init_params_rnn(ActorCriticRNN(hidden=256, dtype=torch.float32,
                                        device=CPU),
                         torch.Generator().manual_seed(0))
-    jshapes = jax.tree.map(lambda x: x.shape, j_init_rnn(
-        jax.random.PRNGKey(0), model=JRNN(hidden=256)))
+    jshapes = jax.tree.map(lambda x: x.shape, jax.eval_shape(
+        lambda k: j_init_rnn(k, model=JRNN(hidden=256)),
+        jax.random.PRNGKey(0)))
     got = jax.tree.map(lambda x: x.shape,
                        actor_critic_rnn_to_flax(m.state_dict()))
     assert got == jshapes

@@ -16,7 +16,7 @@ import minigrid_tpu
 import minigrid_tpu_torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.types import MISSION_LEN
-from minigrid_tpu_torch.envs.base import random_keys
+from minigrid_tpu_torch.envs.base import pool_from_states, random_keys
 
 from tests.torch_port_utils import share_cpu  # noqa: F401
 from tests.torch_port_utils import CPU
@@ -55,13 +55,22 @@ def test_id_resets_and_steps_on_cpu(env_id):
     Bsz = 6
     env = minigrid_tpu_torch.make(env_id, device=CPU).packed()
     g = env.generator(0)
-    obs, st = env.reset_staggered(g, Bsz)
+    # one generation call for the batch, the pool's 4 layouts and the fresh
+    # buffer's 12 (a WFC solve or a level that never validates costs about
+    # the same for 6 envs as for 22): the staggered reset of 22, whose last
+    # 16 with their step counts zeroed are what make_pool and
+    # presample_fresh would have generated
+    obs, st = env.reset_staggered(g, Bsz + 16)
+    rest = st.map(lambda x: x[Bsz:]).replace(step_count=torch.zeros(
+        16, dtype=torch.int32))
+    obs = {k: v[:Bsz] for k, v in obs.items()}
+    st = st.map(lambda x: x[:Bsz])
+    pool = pool_from_states(rest.map(lambda x: x[:4]))
+    buffer = rest.map(lambda x: x[4:])
     V = env.params.view_size
     assert obs["packed"].shape == (Bsz, V, V)
     assert obs["mission"].shape == (Bsz, MISSION_LEN)
     extra_keys = set(st.extra or {})
-    pool = env.make_pool(g, 4)
-    buffer = env.presample_fresh(g, 12)
     cursor = torch.zeros((), dtype=torch.int32)
     budget = "max_steps" in extra_keys
     if budget:

@@ -130,8 +130,14 @@ OPTIONS = {"plain": {}, "backtracking": {"backtracking": True},
 
 
 def jax_solve(preset, loc, shape, options):
+    return _jax_solve(preset, loc, shape, tuple(sorted(options.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_solve(preset, loc, shape, options):
+    """JAX's deterministic solve (its grid and ok), once per case."""
     adj, w, periodic = catalog(preset)
-    kw = dict(loc_heuristic=loc, choice_heuristic="lexical", **options)
+    kw = dict(loc_heuristic=loc, choice_heuristic="lexical", **dict(options))
     grid, ok = jax.jit(lambda k: JS.solve(
         k, jnp.asarray(adj), jnp.asarray(w), shape, periodic, **kw))(
             jax.random.PRNGKey(0))

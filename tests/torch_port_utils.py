@@ -20,24 +20,36 @@ from minigrid_tpu_torch.convert import (env_state_from_numpy, flatten_extra,
 from minigrid_tpu_torch.core import constants as C
 
 CPU = "cpu"
-# torch threads per test process in the modules that train: pytest-xdist
+# torch threads per test process (the ``share_cpu`` fixture): pytest-xdist
 # runs several workers on the machine's cores, and torch's default of one
 # thread per core in each of them oversubscribes the CPU (two workers of
 # tests/test_torch_{ppo,learning}.py took 830 s at 8 threads each, 54 s at
-# 4 on an 8-core machine)
-TEST_THREADS = 2
+# 4 on an 8-core machine; the port's files under the tier-1 flags, 6
+# workers on 8 cores, summed 1362.5 s of test time at 1 thread against
+# 1902.8 s at 2)
+TEST_THREADS = 1
 
 # interaction-biased action stream of tests/test_fused_step.py
 INTERACT = np.array([0, 1, 2, 2, 3, 4, 5, 5], np.int32)
 
 
-def jax_states(env_id: str, batch: int, seed: int = 0, packed: bool = True):
-    """(JAX env, batched JAX states) from ``jax.vmap(env.reset)``."""
+@functools.lru_cache(maxsize=None)
+def jax_env_fns(env_id: str, packed: bool = True):
+    """(JAX env, its jitted ``vmap(env.reset)``, ``vmap(env._gen_grid)``),
+    once per process: a test module's cases trace and compile them once
+    per batch shape."""
     env = minigrid_tpu.make(env_id)
     if packed:
         env = env.packed()
-    _, states = jax.jit(jax.vmap(env.reset))(
-        jax.random.split(jax.random.PRNGKey(seed), batch))
+    return env, jax.jit(jax.vmap(env.reset)), jax.jit(jax.vmap(env._gen_grid))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_states(env_id: str, batch: int, seed: int = 0, packed: bool = True):
+    """(JAX env, batched JAX states) from ``jax.vmap(env.reset)`` (cached:
+    the states are immutable)."""
+    env, reset, _ = jax_env_fns(env_id, packed)
+    _, states = reset(jax.random.split(jax.random.PRNGKey(seed), batch))
     return env, states
 
 
@@ -91,12 +103,12 @@ ALL_FIELDS = ("grid", "agent_pos", "agent_dir", "carrying", "step_count",
               "terminated", "truncated", "mission", "rng", "extra")
 
 
+@functools.lru_cache(maxsize=None)
 def jax_layouts(env_id: str, n: int, seed: int = 0):
-    """(packed JAX env, ``n`` layouts from ``jax.vmap(env._gen_grid)``)."""
-    env = minigrid_tpu.make(env_id).packed()
-    states = jax.jit(jax.vmap(env._gen_grid))(
-        jax.random.split(jax.random.PRNGKey(seed), n))
-    return env, states
+    """(packed JAX env, ``n`` layouts from ``jax.vmap(env._gen_grid)``;
+    cached)."""
+    env, _, gen = jax_env_fns(env_id, True)
+    return env, gen(jax.random.split(jax.random.PRNGKey(seed), n))
 
 
 @functools.lru_cache(maxsize=None)
