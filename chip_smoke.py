@@ -91,9 +91,12 @@ Phases, each fatal on failure:
    behaviour cloning (accuracy > 0.9) and the greedy success rate (> 0.5)
    with the eval's cap derived from the episodes' budgets;
 7. the multi-device layer (``parallel/``) on the one card: 2 ranks sharing
-   it over gloo, each rolling out its 2048 envs of a pooled DoorKey-8x8
-   rollout (B=4096, T=128, uniform actions) bit-exact against the
-   one-process rollout with no collective call; one update of
+   it over gloo, each rolling out its 2048 envs of a pooled, a regen and a
+   fresh DoorKey-8x8 rollout (B=4096, T=128, uniform actions; in the regen
+   and fresh ones the first rank's envs all finish) bit-exact against its
+   rows of the one-process rollout, with no collective call but the fresh
+   routing's one a step (its time measured apart), the launches and host
+   ms of each mode by rank; one update of
    ActorCritic(256) in f32 and bf16 on a fixed trajectory over the 2 ranks
    against one process (the ranks' parameters bit-equal; f32 within 1e-5,
    bf16 by the update's relative error, which a known-wrong control must
@@ -104,7 +107,9 @@ Phases, each fatal on failure:
    of one rank over NCCL, bit-equal to gloo, against the step without a
    mesh in f32 and bf16 (on 2 cards also the update and ``train`` over
    NCCL); ``dryrun_multichip`` on (2, 1) and (2, 2) meshes, its metrics
-   equal on every rank (phase 5 times the kernel at a rank's B=2048).
+   equal on every rank, and on the (2, 2) mesh the regen and fresh
+   rollouts (B=1024, T=32) bit-exact against the data ranks' rows of one
+   process (phase 5 times the kernel at a rank's B=2048).
 
 The line before the last is the card as ``nvidia-smi`` reports it; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -763,6 +768,10 @@ P7_DTYPES = ("float32", "bfloat16")
 # control 0.658 (f32: 0.665, 1.89e-03 abs)
 P7_F32_TOL = 1e-5
 P7_BF16_REL = 0.1
+# 7a/7e: the regen and fresh reset modes, their rollouts held to one
+# process's rows; 7e runs them on the (2, 2) mesh at this batch and length
+P7_RESET_MODES = ("regen", "fresh")
+P7E_BATCH, P7E_LEN = 1024, 32
 
 
 class CountDistCalls:
@@ -799,16 +808,37 @@ def p7_env():
     return mt.make(ENV_ID, device="cuda").packed()
 
 
+def p7_timed_rollout(env, mesh, resets, st, obs, seed, pool=None, T=None):
+    """A random-policy rollout of ``T`` steps (``ROLLOUT_LEN``) after a
+    4-step warm-up from the same state (its set-up outside the clock), the
+    launches counted from 0 and the torch.distributed calls counted just
+    around it: ((state, obs, chunk), (step, observe) launches, calls, host
+    ms)."""
+    import torch
+
+    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    from minigrid_tpu_torch.parallel.rollout import make_rollout
+
+    make_rollout(env, None, 4, resets=resets, mesh=mesh)(
+        None, st, obs, env.generator(seed + 1000), pool)
+    rollout = make_rollout(env, None, T or ROLLOUT_LEN, resets=resets,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    zero_counts()
+    with CountDistCalls() as calls:
+        t0 = time.perf_counter()
+        out = rollout(None, st, obs, env.generator(seed), pool)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return out, (KERNEL.launches, KERNEL.observe_launches), calls.calls, ms
+
+
 def p7_random_rollout(mesh=None):
     """7a: DoorKey-8x8's pooled rollout (B=4096 staggered, T=128, a 1024
     pool) with uniform actions, of the mesh's data rank or of this
     process: (chunk as numpy, (step, observe) launches, torch.distributed
-    calls)."""
-    import torch
-
-    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    calls, host ms)."""
     from minigrid_tpu_torch.parallel import mesh as M
-    from minigrid_tpu_torch.parallel.rollout import make_rollout
 
     env = p7_env()
     g = env.generator(SEED + 70)
@@ -816,18 +846,62 @@ def p7_random_rollout(mesh=None):
     obs, st = env.reset_staggered(g, BATCH)
     if mesh is not None:
         obs, st = M.shard_batch(mesh, (obs, st))
-    rollout = make_rollout(env, None, ROLLOUT_LEN, pooled=True, mesh=mesh)
-    torch.cuda.synchronize()
-    zero_counts()
-    with CountDistCalls() as calls:
-        st, obs, chunk = rollout(None, st, obs, env.generator(SEED + 71),
-                                 pool)
-    torch.cuda.synchronize()
+    (st, obs, chunk), launched, calls, ms = p7_timed_rollout(
+        env, mesh, "pooled", st, obs, SEED + 71, pool)
     out = {"reward": chunk.reward, "action": chunk.action,
            "done": chunk.done, "packed": chunk.obs["packed"],
            "pool": pool.grid}
-    return ({k: v.cpu().numpy() for k, v in out.items()},
-            (KERNEL.launches, KERNEL.observe_launches), calls.calls)
+    return ({k: v.cpu().numpy() for k, v in out.items()}, launched, calls,
+            ms)
+
+
+def p7_reset_rollout(resets: str, mesh=None, B: int = BATCH,
+                     T: int = ROLLOUT_LEN):
+    """7a and 7e: DoorKey-8x8's regen or fresh rollout of ``B`` staggered
+    envs, ``T`` steps of uniform actions, the first half of the envs (the
+    first data rank's) moved into the last ``T`` steps of their budget, so
+    that all of them finish in the rollout: the fresh buffer, sized for a
+    staggered batch, runs out, and the routing must rank the first data
+    rank's finishers before the second's. Of the mesh's data rank or of
+    this process: (chunk and final state as numpy, (step, observe)
+    launches, torch.distributed calls, host ms)."""
+    import torch
+
+    from minigrid_tpu_torch.parallel import mesh as M
+
+    env = p7_env()
+    g = env.generator(SEED + 76)
+    obs, st = env.reset_staggered(g, B)
+    ms = env.params.max_steps
+    first = torch.arange(B, device="cuda") < B // 2
+    st = st.replace(step_count=torch.where(
+        first, ms - 1 - st.step_count % T, st.step_count))
+    if mesh is not None:
+        obs, st = M.shard_batch(mesh, (obs, st))
+    (st, obs, chunk), launched, calls, host_ms = p7_timed_rollout(
+        env, mesh, resets, st, obs, SEED + 77, T=T)
+    out = {"reward": chunk.reward, "action": chunk.action,
+           "done": chunk.done, "packed": chunk.obs["packed"],
+           "grid": st.grid, "agent_pos": st.agent_pos,
+           "step_count": st.step_count}
+    return ({k: v.cpu().numpy() for k, v in out.items()}, launched, calls,
+            host_ms)
+
+
+def p7_check_rows(name: str, got: list, want: dict, rows_of) -> None:
+    """Each rank's chunk and final state (``got[r]``) against its rows
+    (``rows_of(r)``) of the one-process ones ``want``, bit for bit: (T, B,
+    ...) chunk entries, (B, ...) state entries."""
+    import numpy as np
+
+    for r, chunk in enumerate(got):
+        rows = rows_of(r)
+        for k, w in want.items():
+            w = w[rows] if k in ("grid", "agent_pos", "step_count") \
+                else w[:, rows]
+            if not np.array_equal(chunk[k], w):
+                raise AssertionError(f"{name}: rank {r}'s {k} differs from "
+                                     "its rows of the one-process rollout")
 
 
 def p7_update(dtype_name: str, mesh=None, collectives: bool = True):
@@ -920,10 +994,33 @@ def p7_all_reduce_ms(mesh, numel: int, reps: int = 20) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def p7_finishers_ms(mesh, reps: int = 100) -> float:
+    """Host ms of one call of the fresh routing's per-step collective
+    (``models/ppo.py::finisher_counts``: an all-reduce of the data ranks'
+    finisher counts, (n,) int32 on the card; synchronised, after a
+    warm-up)."""
+    import torch
+
+    from minigrid_tpu_torch.models.ppo import finisher_counts
+
+    finishers = finisher_counts(mesh)
+    count = torch.tensor(7, dtype=torch.int32, device="cuda")
+    finishers(count)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        offset, total = finishers(count)
+    torch.cuda.synchronize()
+    if int(total) != 7 * mesh.data_size or int(offset) != 7 * mesh.data_rank:
+        raise AssertionError(f"finisher counts {int(offset)}, {int(total)}")
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def multi_device_rank(parts=("a", "b", "step", "actions",
                              "dryrun")) -> dict:
     """Phase 7 on one rank of a group of 2 (spawned by ``parallel.mesh.
-    spawn``): the random-policy rollout (7a), the f32 and bf16 updates and
+    spawn``): the pooled, regen and fresh random-policy rollouts and the
+    fresh routing's collective (7a), the f32 and bf16 updates and
     their controls (7b), the gradient all-reduce's time, the distributed
     train step, the policy's actions, and the dry run on the (2, 1) mesh
     (7e)."""
@@ -937,6 +1034,11 @@ def multi_device_rank(parts=("a", "b", "step", "actions",
     out = {"rank": mesh.rank}
     if "a" in parts:
         out["a"] = p7_random_rollout(mesh)
+        t0 = time.perf_counter()
+        for resets in P7_RESET_MODES:
+            out[resets] = p7_reset_rollout(resets, mesh)
+        out["finishers_ms"] = p7_finishers_ms(mesh)
+        out["reset_secs"] = time.perf_counter() - t0
     if "b" in parts:
         out["b"] = {d: p7_update(d, mesh) for d in P7_DTYPES}
         out["b_control"] = {d: p7_update(d, mesh, collectives=False)
@@ -949,6 +1051,23 @@ def multi_device_rank(parts=("a", "b", "step", "actions",
         out["actions"] = p7_policy_actions(mesh)
     if "dryrun" in parts:
         out["dryrun"] = dryrun_multichip(P7_RANKS, device="cuda")[0]
+    return out
+
+
+def multi_device_mesh22_rank() -> dict:
+    """7e on one rank of 4 sharing the card: ``dryrun_multichip(4)`` (its
+    (2, 2) mesh) and the regen and fresh rollouts of ``p7_reset_rollout``
+    (B=1024, T=32) on a (2, 2) mesh."""
+    from minigrid_tpu_torch.parallel import mesh as M
+    from minigrid_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = {"dryrun": dryrun_multichip(4, device="cuda")[0]}
+    mesh = M.make_mesh(4, model_parallel=2)
+    out["data_rank"] = mesh.data_rank
+    t0 = time.perf_counter()
+    for resets in P7_RESET_MODES:
+        out[resets] = p7_reset_rollout(resets, mesh, P7E_BATCH, P7E_LEN)
+    out["reset_secs"] = time.perf_counter() - t0
     return out
 
 
@@ -1048,19 +1167,24 @@ def multi_device_phase(card: str, kind: str) -> dict:
     from minigrid_tpu_torch.models.ppo import PPOConfig
     from minigrid_tpu_torch.models.train import TrainConfig, train
     from minigrid_tpu_torch.parallel import mesh as M
-    from minigrid_tpu_torch.parallel.dryrun import dryrun_multichip
 
     t7 = time.perf_counter()
-    ref_chunk, ref_launches, ref_calls = p7_random_rollout()
+    ref_chunk, ref_launches, ref_calls, ref_ms = p7_random_rollout()
+    t_refs = time.perf_counter()
+    ref_resets = {m: p7_reset_rollout(m) for m in P7_RESET_MODES}
+    ref_resets_e = {m: p7_reset_rollout(m, None, P7E_BATCH, P7E_LEN)
+                    for m in P7_RESET_MODES}
+    added_secs = time.perf_counter() - t_refs
     ref_update = {d: p7_update(d) for d in P7_DTYPES}
     ref_actions = p7_policy_actions()
     ranks = M.spawn(multi_device_rank, P7_RANKS, "gloo", "cuda",
                     timeout=900)
     Bl = BATCH // P7_RANKS
     # 7a: each rank's block of the one-process rollout, bit for bit
-    rank_launches = []
+    rank_launches, rank_ms = [], []
     for r, res in enumerate(ranks):
-        chunk, launched, calls = res["a"]
+        chunk, launched, calls, ms = res["a"]
+        rank_ms.append(ms)
         rows = slice(r * Bl, (r + 1) * Bl)
         for k in ("reward", "action", "done", "packed"):
             if not np.array_equal(chunk[k], ref_chunk[k][:, rows]):
@@ -1080,7 +1204,49 @@ def multi_device_phase(card: str, kind: str) -> dict:
           f"rollout bit for bit (reward, action, done, packed obs; "
           f"{int(ref_chunk['done'].sum())} episodes ended), the layout "
           f"pools are equal, 0 torch.distributed calls; (step, observe) "
-          f"launches by rank {rank_launches}, one process {ref_launches}")
+          f"launches by rank {rank_launches}, one process {ref_launches}; "
+          f"host ms by rank {[round(m, 3) for m in rank_ms]}, one process "
+          f"{ref_ms:.3f}")
+    # 7a, regen and fresh: each rank's rows of the one-process rollout,
+    # bit for bit; the collective calls a rank: 0 (regen), one a step
+    # (fresh: the finisher counts)
+    reset_report = {}
+    for m in P7_RESET_MODES:
+        want, want_launched, want_calls, want_ms = ref_resets[m]
+        p7_check_rows(f"7a {m}", [res[m][0] for res in ranks], want,
+                      lambda r: slice(r * Bl, (r + 1) * Bl))
+        launched = [res[m][1] for res in ranks]
+        calls = [res[m][2] for res in ranks]
+        expect_calls = ROLLOUT_LEN if m == "fresh" else 0
+        if calls != [expect_calls] * P7_RANKS or want_calls != 0:
+            raise AssertionError(f"7a {m}: torch.distributed calls {calls}, "
+                                 f"one process {want_calls}")
+        if any(n != (ROLLOUT_LEN, ROLLOUT_LEN) for n in launched):
+            raise AssertionError(f"7a {m}: ranks launched {launched}")
+        rank_launches += launched
+        reset_report[m] = {
+            "ms_by_rank": [res[m][3] for res in ranks],
+            "ms_one_process": want_ms, "dist_calls_by_rank": calls,
+            "launches_by_rank": launched, "launches_one_process":
+            want_launched, "episodes_ended": int(want["done"].sum())}
+        print(f"7a. {m} random-policy rollout of {short(ENV_ID)}, B={BATCH} "
+              f"over {P7_RANKS} gloo ranks sharing {kind} (T={ROLLOUT_LEN}; "
+              f"the first rank's {Bl} envs all finish inside it, "
+              f"{int(want['done'].sum())} episodes ended): each rank's rows "
+              f"equal the one-process rollout bit for bit (reward, action, "
+              f"done, packed obs, final grid, agent_pos, step_count); "
+              f"torch.distributed calls by rank {calls}; (step, observe) "
+              f"launches by rank {launched}, one process {want_launched}; "
+              f"host ms by rank "
+              f"{[round(x, 3) for x in reset_report[m]['ms_by_rank']]}, one "
+              f"process {want_ms:.3f} (pooled: {rank_ms[0]:.3f} on rank 0; "
+              f"{card})")
+    finishers_ms = ranks[0]["finishers_ms"]
+    added_secs += ranks[0]["reset_secs"]
+    print(f"  the fresh routing's collective (an all-reduce of the "
+          f"{P7_RANKS} ranks' finisher counts, int32 on the card, gloo): "
+          f"{finishers_ms:.4f} ms host time a call, {ROLLOUT_LEN} a "
+          f"rollout ({card})")
     # 7b: the update over 2 ranks against one process, and the control
     update_diff, update_rel, control = {}, {}, {}
     for d in P7_DTYPES:
@@ -1198,8 +1364,10 @@ def multi_device_phase(card: str, kind: str) -> dict:
     # (2, 2) mesh (4 gloo ranks on the card): finite metrics, equal on
     # every rank (global, and the model ranks of a data rank hold the
     # same envs)
+    mesh22 = M.spawn(multi_device_mesh22_rank, 4, "gloo", "cuda",
+                     timeout=900)
     dry = {"(2, 1)": [res["dryrun"] for res in ranks],
-           "(2, 2)": dryrun_multichip(4, backend="gloo", device="cuda")}
+           "(2, 2)": [res["dryrun"] for res in mesh22]}
     for mesh_shape, res in dry.items():
         if not all(math.isfinite(v) for m in res[0].values()
                    for v in m.values()):
@@ -1210,11 +1378,40 @@ def multi_device_phase(card: str, kind: str) -> dict:
         print(f"7e. dryrun_multichip on a {mesh_shape} mesh of gloo ranks "
               f"sharing the card: {', '.join(res[0])} OK, the metrics "
               f"equal on all {len(res)} ranks")
+    # 7e: the regen and fresh rollouts on the (2, 2) mesh, each rank's rows
+    # those of its data rank in one process (the model ranks of a data
+    # rank hold the same envs)
+    Be = P7E_BATCH // P7_RANKS
+    for m in P7_RESET_MODES:
+        want = ref_resets_e[m][0]
+        p7_check_rows(f"7e {m}", [res[m][0] for res in mesh22], want,
+                      lambda r: slice(mesh22[r]["data_rank"] * Be,
+                                      (mesh22[r]["data_rank"] + 1) * Be))
+        calls = [res[m][2] for res in mesh22]
+        if calls != [P7E_LEN if m == "fresh" else 0] * 4:
+            raise AssertionError(f"7e {m}: torch.distributed calls {calls}")
+        if any(res[m][1] != (P7E_LEN, P7E_LEN) for res in mesh22):
+            raise AssertionError(f"7e {m}: launches "
+                                 f"{[res[m][1] for res in mesh22]}")
+        print(f"7e. {m} random-policy rollout of {short(ENV_ID)}, "
+              f"B={P7E_BATCH}, T={P7E_LEN} on a (2, 2) mesh of gloo ranks "
+              f"sharing the card: each rank's rows equal its data rank's "
+              f"rows of one process bit for bit "
+              f"({int(want['done'].sum())} episodes ended); "
+              f"torch.distributed calls by rank {calls}; (step, observe) "
+              f"launches by rank {[res[m][1] for res in mesh22]}")
+    added_secs += mesh22[0]["reset_secs"]
+    rank_launches += [res[m][1] for m in P7_RESET_MODES for res in mesh22]
+    print(f"  the regen/fresh additions of 7a and 7e on the script's clock: "
+          f"{added_secs:.1f} s (the one-process references, rank 0's "
+          f"rollouts in the 2-rank group and on the (2, 2) mesh)")
     multi_device_secs = time.perf_counter() - t7
     print(f"7. multi-device on the script's clock: {multi_device_secs:.1f} "
           f"s")
     multi_device = {
         "ranks_launches": rank_launches,
+        "reset_rollouts": reset_report, "finishers_ms": finishers_ms,
+        "reset_additions_secs": added_secs,
         "ranks_step_launches": step_launches,
         "world_of_one_launches": world_launches,
         "update_max_abs_diff": update_diff,
@@ -2699,9 +2896,10 @@ def main() -> int:
 
     # --- 7. multi-device ------------------------------------------------
     multi_device = multi_device_phase(card, kind)
-    # phase 7's launches, each counted from 0 just before its run: the 2
-    # ranks' rollouts (7a) and train steps, and the world-of-one train
-    # steps (7d: NCCL and gloo, f32 and bf16)
+    # phase 7's launches, each counted from 0 just before its run: the
+    # ranks' rollouts (7a: pooled, regen and fresh on 2 ranks; 7e: regen
+    # and fresh on the (2, 2) mesh's 4) and train steps, and the
+    # world-of-one train steps (7d: NCCL and gloo, f32 and bf16)
     p7_launches = (multi_device["ranks_launches"]
                    + multi_device["ranks_step_launches"]
                    + multi_device["world_of_one_launches"])

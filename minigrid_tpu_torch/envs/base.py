@@ -260,17 +260,20 @@ def autoreset_step_select(env, states: EnvState, actions,
 
 
 def autoreset_step(env, keys, states: EnvState, actions,
-                   generator: torch.Generator):
+                   generator: torch.Generator, layouts: EnvState | None = None):
     """Generic auto-resetting step through ``env.step``/``env.reset`` of
     any env-like, wrapper stacks included (``states`` an EnvState or a
     ``wrappers.WrappedState``): a finishing episode is replaced by a
     freshly generated layout, so every reset is an independent draw (the
     distribution reference path). Both the stepped and the reset
     observation are computed and selected; :meth:`MiniGridEnv.
-    step_autoreset` observes once instead."""
+    step_autoreset` observes once instead. ``layouts``: the bare reset
+    layouts, one per env, generated by the caller (``env.reset_from``
+    takes them) instead of drawn here from ``generator``."""
     obs, st, reward, term, trunc, info = env.step(keys, states, actions)
     done = term | trunc
-    obs_r, st_r = env.reset(generator, states.batch_size)
+    obs_r, st_r = (env.reset(generator, states.batch_size) if layouts is None
+                   else env.reset_from(layouts))
     return (select_obs(done, obs, obs_r), select_reset_states(done, st, st_r),
             reward, term, trunc, info)
 
@@ -303,7 +306,8 @@ def presample_fresh_reset_states(env, generator: torch.Generator,
 
 
 def autoreset_step_fresh(env, keys, states: EnvState, actions,
-                         buffer: EnvState, cursor, window: int = 32):
+                         buffer: EnvState, cursor, window: int = 32,
+                         finishers=None):
     """BATCHED auto-resetting step with exact reset distribution: envs
     finishing this step are ranked (exclusive cumsum of the done mask), the
     env of rank r restarts from buffer row ``cursor + r`` and the cursor
@@ -311,24 +315,39 @@ def autoreset_step_fresh(env, keys, states: EnvState, actions,
     scalar (no host sync). Ranks beyond ``window - 1`` share the last row of
     the window, and the window start clamps at ``n_buf - window``;
     ``info["reset_overflow"]`` counts the finishers whose reset was not an
-    untouched fresh row for either reason. Returns ``(obs, state, reward,
-    terminated, truncated, info, new_cursor)``."""
+    untouched fresh row for either reason. ``finishers``: see
+    :func:`fresh_candidates`. Returns ``(obs, state, reward, terminated,
+    truncated, info, new_cursor)``."""
     st, _, reward, term, trunc = hooked_step(env, keys, states, actions)
     obs, st, info, cursor = _fresh_select(env, keys, st, term | trunc,
-                                          buffer, cursor, window)
+                                          buffer, cursor, window, finishers)
     return obs, st, reward, term, trunc, info, cursor
 
 
-def fresh_candidates(keys, done, buffer: EnvState, cursor, window: int):
+def fresh_candidates(keys, done, buffer: EnvState, cursor, window: int,
+                     finishers=None):
     """The routing of the fresh reset: (candidates, reset_overflow,
     new_cursor). Candidate b is buffer row ``start + min(rank_b, window -
     1)`` with ``start = min(cursor, n_buf - window)``, gathered by device
-    indices, and the fresh rng ``keys ^ RESET_RNG_SALT``."""
+    indices, and the fresh rng ``keys ^ RESET_RNG_SALT``.
+
+    ``finishers`` routes a batch that is one block of a global batch (a
+    data rank's, ``models/ppo.py::finisher_counts``): a callable that takes
+    the block's finisher count and returns ``(offset, total)``, the
+    finishers of the blocks before it and of the whole batch (device int32
+    scalars). Env b then takes the rank ``offset`` + its rank in the block,
+    and the cursor advances by ``total``, so the block takes its rows of
+    the global batch's routing (with the global buffer) and counts its
+    finishers' overflow. None: the batch is the whole one."""
     n_buf = buffer.batch_size
     if not 1 <= window <= n_buf:
         raise ValueError(f"window must be in [1, {n_buf}], got {window}")
     d = done.to(torch.int32)
     rank = torch.cumsum(d, 0, dtype=torch.int32) - d
+    total = d.sum(dtype=torch.int32)
+    if finishers is not None:
+        offset, total = finishers(total)
+        rank = rank + offset
     slot = torch.clamp(rank, max=window - 1)
     start = torch.clamp(cursor, max=n_buf - window)
     rows = (start + slot).to(torch.int64)
@@ -337,15 +356,15 @@ def fresh_candidates(keys, done, buffer: EnvState, cursor, window: int):
     overrun_rows = torch.clamp(cursor - (n_buf - window), min=0)
     overflow = (done & ((rank >= window) | (slot < overrun_rows))).sum(
         dtype=torch.int32)
-    return cand, overflow, cursor + d.sum(dtype=torch.int32)
+    return cand, overflow, cursor + total
 
 
 def _fresh_select(env, keys, st: EnvState, done, buffer: EnvState, cursor,
-                  window: int):
+                  window: int, finishers=None):
     """The routing/select/observe tail of :func:`autoreset_step_fresh`.
     Returns ``(obs, state, info, new_cursor)``."""
     cand, overflow, cursor = fresh_candidates(keys, done, buffer, cursor,
-                                              window)
+                                              window, finishers)
     st = select_reset_states(done, st, cand)
     return env._observe(st), st, {"reset_overflow": overflow}, cursor
 
@@ -499,8 +518,11 @@ class MiniGridEnv:
         return self._obs_dict(fused_observe(self.params, state), state)
 
     def reset(self, generator: torch.Generator, num_envs: int):
-        state = self._gen_grid(generator, num_envs)
-        return self._observe(state), state
+        return self.reset_from(self._gen_grid(generator, num_envs))
+
+    def reset_from(self, states: EnvState):
+        """The reset to the given layouts: (observation, states)."""
+        return self._observe(states), states
 
     def reset_staggered(self, generator: torch.Generator, num_envs: int):
         """Reset with a uniform random initial ``step_count`` in
@@ -542,14 +564,17 @@ class MiniGridEnv:
         return self._obs_dict(obs, st), st, reward, term, trunc, {}
 
     def step_autoreset(self, keys, states: EnvState, actions,
-                       generator: torch.Generator):
+                       generator: torch.Generator,
+                       layouts: EnvState | None = None):
         """Step with the regen auto-reset: a fresh ``_gen_grid`` batch is
         generated every step and selected into the finished envs, whose
         observation is then taken once on the selected state. Reward and
-        flags report the finishing step."""
-        return autoreset_step_select(
-            self, states, actions,
-            self._gen_grid(generator, states.batch_size), keys)
+        flags report the finishing step. ``layouts``: that batch, generated
+        by the caller (a data rank's rows of the global batch's,
+        ``models/ppo.py::rollout``) instead of here from ``generator``."""
+        if layouts is None:
+            layouts = self._gen_grid(generator, states.batch_size)
+        return autoreset_step_select(self, states, actions, layouts, keys)
 
     def step_autoreset_presampled(self, keys, states: EnvState, actions,
                                   reset_row: LayoutPool):
@@ -563,9 +588,10 @@ class MiniGridEnv:
                                      generator, independent)
 
     def step_autoreset_fresh(self, keys, states: EnvState, actions,
-                             buffer: EnvState, cursor, window: int = 32):
+                             buffer: EnvState, cursor, window: int = 32,
+                             finishers=None):
         return autoreset_step_fresh(self, keys, states, actions, buffer,
-                                    cursor, window)
+                                    cursor, window, finishers)
 
     def presample_fresh(self, generator: torch.Generator,
                         n: int) -> EnvState:

@@ -36,16 +36,18 @@ needs ``shuffle="rotate"``; the train step becomes ``train_step(env_state,
 obs, h, generator, pool=None) -> (env_state, obs, h, metrics)``.
 
 Over several ranks (``mesh``, ``parallel/mesh.py``) each rank holds its
-data rank's block of the batch. Two generators split the randomness: the
-shared one, seeded alike on every rank, draws everything that is drawn
-per env of the global batch (the step keys and the Gumbel noise, of which
-each rank keeps its block, the reset rows, the minibatch draws), so a
-pooled rollout's rank block is exactly its rows of one process's rollout;
-the local one generates the regen and fresh layouts of the rank's own
-envs. The update is the global update: the advantage statistics, the
-loss's means and the gradients are all-reduced over the data ranks, and
-every rank takes the same optimizer step. Without a mesh there are no
-collectives, and the two generators are one.
+data rank's block of the batch. One generator, seeded alike on every rank,
+draws everything that one process draws, as one process draws it: the
+step keys and the Gumbel noise, of which each rank keeps its block, the
+reset rows, the regen layouts of the global batch (each rank keeps its
+rows), the fresh buffer (whole on every rank) and the minibatch draws. The
+fresh routing ranks a step's finishers over the global batch (one
+all-reduce of the ranks' finisher counts a step, :func:`finisher_counts`),
+so a rollout's rank block, in every reset mode, is exactly its rows of one
+process's rollout. The update is the global update: the advantage
+statistics, the loss's means and the gradients are all-reduced over the
+data ranks, and every rank takes the same optimizer step. Without a mesh
+there are no collectives.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ from minigrid_tpu_torch.envs.base import (LayoutPool, presample_reset_states,
                                           random_keys)
 from minigrid_tpu_torch.models.actor_critic import (encode_obs,
                                                     mission_counts)
-from minigrid_tpu_torch.wrappers import Wrapper
+from minigrid_tpu_torch.wrappers import ReseedWrapper, Wrapper
 
 RESET_MODES = ("regen", "pooled", "fresh")
 SHUFFLES = ("rotate", "timestep", "sample")
@@ -145,18 +147,12 @@ def sample_rollout_noise(generator: torch.Generator, pool: LayoutPool | None,
     return RolloutNoise(keys, gumbel, rows)
 
 
-def fresh_sizes(env, cfg: PPOConfig, fresh_buffer: int | None = None,
-                ranks: int = 1) -> tuple[int, int]:
+def fresh_sizes(env, cfg: PPOConfig,
+                fresh_buffer: int | None = None) -> tuple[int, int]:
     """(buffer rows, routing window) of the fresh reset, as the JAX package
-    sizes them: the buffer ~1.2x the expected resets of a rollout plus 8
-    sigma, the window ~2x a step's mean finishers plus 6 sigma (at least
-    32, at most the buffer). Over ``ranks`` data ranks, the sizes of one
-    rank's buffer: from its ``num_envs / ranks`` envs, or its share of an
-    explicit ``fresh_buffer`` (rounded up)."""
-    if ranks > 1:
-        cfg = dataclasses.replace(cfg, num_envs=cfg.num_envs // ranks)
-        if fresh_buffer is not None:
-            fresh_buffer = -(-fresh_buffer // ranks)
+    sizes them: the buffer ~1.2x the expected resets of a rollout of the
+    (global) batch plus 8 sigma, the window ~2x a step's mean finishers
+    plus 6 sigma (at least 32, at most the buffer)."""
     if fresh_buffer is None:
         ms = int(env.params.max_steps)
         if ms > 1 << 16:
@@ -170,20 +166,57 @@ def fresh_sizes(env, cfg: PPOConfig, fresh_buffer: int | None = None,
     return fresh_buffer, min(window, fresh_buffer)
 
 
+def finisher_counts(mesh):
+    """The fresh routing's ``finishers`` over the data ranks (see
+    ``envs/base.py::fresh_candidates``): one all-reduce over
+    ``mesh.data_group`` of an (n,) int32 vector in which this data rank
+    writes its block's finisher count at its slot; returns (the counts of
+    the ranks before it, the total), device int32 scalars."""
+    def finishers(count):
+        counts = torch.zeros((mesh.data_size,), dtype=torch.int32,
+                             device=count.device)
+        counts[mesh.data_rank] = count
+        dist.all_reduce(counts, group=mesh.data_group)
+        return (counts[:mesh.data_rank].sum(dtype=torch.int32),
+                counts.sum(dtype=torch.int32))
+
+    return finishers
+
+
+def regen_layouts(env, generator: torch.Generator, num_envs: int,
+                  rows: slice):
+    """The rows ``rows`` of the regen layouts of a global batch of
+    ``num_envs`` envs, drawn from ``generator`` as one process draws them
+    (its bare env's ``_gen_grid``), or None for a stack holding a
+    ``ReseedWrapper``, whose seeds dictate every reset (one process draws
+    nothing)."""
+    while isinstance(env, Wrapper):
+        if isinstance(env, ReseedWrapper):
+            return None
+        env = env.env
+    return env._gen_grid(generator, num_envs).map(lambda x: x[rows])
+
+
 @torch.no_grad()
 def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
             resets: str = "pooled", generator: torch.Generator | None = None,
             fresh_buffer: int | None = None, fresh_window: int = 32,
-            h: torch.Tensor | None = None):
+            h: torch.Tensor | None = None, mesh=None):
     """T = noise.gumbel.shape[0] policy steps of every env.
 
     ``resets``: "pooled" takes ``noise.reset_rows``; "fresh" generates a
     buffer of ``fresh_buffer`` layouts from ``generator`` and routes them
     through a ``fresh_window``-row window; "regen" generates a batch from
-    ``generator`` every step. Returns ``(env_state, obs, traj,
-    reset_overflow)``: ``traj`` is a :class:`Transition` of (T, B, ...)
-    tensors, ``traj.obs`` the encoded observations the policy saw (the
-    raw ones for a model with ``takes_raw_obs``), and
+    ``generator`` every step. With a ``mesh``, ``env_state`` and ``noise``
+    hold the data rank's block of a global batch, and ``generator`` is the
+    one every rank seeds alike: "regen" generates the global batch a step
+    and keeps the rank's rows, "fresh" generates the whole buffer (size it
+    from the global batch) and routes it over the global batch, one
+    all-reduce of the finisher counts a step (:func:`finisher_counts`).
+    Returns ``(env_state, obs, traj, reset_overflow)``: ``traj`` is a
+    :class:`Transition` of (T, B, ...) tensors, ``traj.obs`` the encoded
+    observations the policy saw (the raw ones for a model with
+    ``takes_raw_obs``), and
     ``reset_overflow`` the fresh mode's degraded resets summed over the
     rollout (a device int32 scalar, 0 in the other modes). A recurrent
     ``model`` takes the hidden state ``h`` (B, H), stores each step's input
@@ -214,6 +247,10 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
     if resets == "fresh":
         buffer = env.presample_fresh(generator, fresh_buffer)
         cursor = torch.zeros((), dtype=torch.int32, device=dev)
+        finishers = None if mesh is None else finisher_counts(mesh)
+    if resets == "regen" and mesh is not None:
+        num_envs = env_state.batch_size * mesh.data_size
+        rows = mesh.batch_slice(num_envs)
     recurrent = is_recurrent(model)
     if recurrent and h is None:
         raise ValueError("a recurrent policy's rollout needs its hidden "
@@ -243,11 +280,13 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
         elif resets == "fresh":
             obs, env_state, reward, term, trunc, info, cursor = \
                 env.step_autoreset_fresh(keys, env_state, action, buffer,
-                                         cursor, fresh_window)
+                                         cursor, fresh_window, finishers)
             overflow = overflow + info["reset_overflow"]
         else:
+            layouts = (None if mesh is None else
+                       regen_layouts(env, generator, num_envs, rows))
             obs, env_state, reward, term, trunc, _ = env.step_autoreset(
-                keys, env_state, action, generator)
+                keys, env_state, action, generator, layouts)
         done = term | trunc
         if carry:
             counts = torch.where(done[:, None], reset_counts[t][None],
@@ -535,8 +574,8 @@ def check_config(cfg: PPOConfig, recurrent: bool = False) -> None:
 def make_train_step(env, model, cfg: PPOConfig, optimizer,
                     pooled: bool = False, resets: str | None = None,
                     fresh_buffer: int | None = None, mesh=None):
-    """Returns ``train_step(env_state, obs, generator, pool=None,
-    local_generator=None) -> (env_state, obs, metrics)``: one rollout of
+    """Returns ``train_step(env_state, obs, generator, pool=None) ->
+    (env_state, obs, metrics)``: one rollout of
     ``cfg.rollout_len`` steps in the ``resets`` mode ("regen" by default;
     ``pooled=True`` is shorthand for "pooled", which needs ``pool``), GAE,
     and the update of ``model`` and ``optimizer`` in place. ``metrics``
@@ -544,17 +583,15 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
     ``mean_reward`` and, with fresh resets, ``reset_overflow`` summed over
     the rollout. ``fresh_buffer`` overrides the fresh buffer's size
     (:func:`fresh_sizes`). For a recurrent ``model`` it is
-    ``train_step(env_state, obs, h, generator, pool=None,
-    local_generator=None) -> (env_state, obs, h, metrics)``, ``h`` the
-    hidden state carried across train steps (``model.initial_state(
-    num_envs)`` at first).
+    ``train_step(env_state, obs, h, generator, pool=None) -> (env_state,
+    obs, h, metrics)``, ``h`` the hidden state carried across train steps
+    (``model.initial_state(num_envs)`` at first).
 
     With a ``mesh`` (``parallel.make_mesh``) this is one data rank's step:
     ``cfg.num_envs`` is the global batch, ``env_state``, ``obs`` and ``h``
-    hold the rank's block of it, ``generator`` is the generator every rank
-    seeds alike and ``local_generator`` the rank's own (the regen and
-    fresh layouts; the fresh buffer is the rank's share); the metrics are
-    global. Without ``local_generator`` the one generator does both."""
+    hold the rank's block of it, ``generator`` is seeded alike on every
+    rank and draws what one process draws (see the module docstring; the
+    fresh buffer is the global batch's), and the metrics are global."""
     recurrent = is_recurrent(model)
     if resets is None:
         resets = "pooled" if pooled else "regen"
@@ -570,10 +607,10 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
         raise ValueError(f"num_envs ({cfg.num_envs}) does not split over "
                          f"{ranks} data ranks")
     local_envs = cfg.num_envs // ranks
-    n_buf, window = (fresh_sizes(env, cfg, fresh_buffer, ranks)
+    n_buf, window = (fresh_sizes(env, cfg, fresh_buffer)
                      if resets == "fresh" else (None, 32))
 
-    def step(env_state, obs, h, generator, pool, local_generator):
+    def step(env_state, obs, h, generator, pool):
         if env_state.batch_size != local_envs:
             raise ValueError(f"env_state holds {env_state.batch_size} envs, "
                              f"cfg.num_envs is {cfg.num_envs} over {ranks} "
@@ -585,10 +622,8 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
             cfg.rollout_len, model.num_actions, device=env_state.device)
         if mesh is not None:
             noise = noise.shard(mesh.batch_slice(cfg.num_envs))
-        if local_generator is None:
-            local_generator = generator
-        out = rollout(model, env, env_state, obs, noise, resets,
-                      local_generator, n_buf, window, h)
+        out = rollout(model, env, env_state, obs, noise, resets, generator,
+                      n_buf, window, h, mesh)
         env_state, obs, traj, overflow = out[:4]
         h = out[4] if recurrent else None
         metrics = ppo_update(model, optimizer, cfg, traj, obs, generator, h,
@@ -601,16 +636,13 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
 
     if recurrent:
         def train_step(env_state, obs, h, generator: torch.Generator,
-                       pool: LayoutPool | None = None,
-                       local_generator: torch.Generator | None = None):
-            return step(env_state, obs, h, generator, pool, local_generator)
+                       pool: LayoutPool | None = None):
+            return step(env_state, obs, h, generator, pool)
     else:
         def train_step(env_state, obs, generator: torch.Generator,
-                       pool: LayoutPool | None = None,
-                       local_generator: torch.Generator | None = None):
+                       pool: LayoutPool | None = None):
             env_state, obs, _, metrics = step(env_state, obs, None,
-                                              generator, pool,
-                                              local_generator)
+                                              generator, pool)
             return env_state, obs, metrics
 
     return train_step
@@ -619,10 +651,9 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
 def make_train_loop(env, model, cfg: PPOConfig, optimizer,
                     steps_per_call: int = 8, **kw):
     """``steps_per_call`` train steps per call: ``train_loop(env_state,
-    obs, generator, pool=None, local_generator=None) -> (env_state, obs,
-    metrics)`` with each metric stacked (K,); for a recurrent model
-    ``train_loop(env_state, obs, h, generator, pool=None,
-    local_generator=None) -> (env_state, obs, h, metrics)``. With pooled
+    obs, generator, pool=None) -> (env_state, obs, metrics)`` with each
+    metric stacked (K,); for a recurrent model ``train_loop(env_state, obs,
+    h, generator, pool=None) -> (env_state, obs, h, metrics)``. With pooled
     resets the same pool serves all K steps. Keyword arguments (``mesh``
     among them) go to :func:`make_train_step`."""
     step = make_train_step(env, model, cfg, optimizer, **kw)
@@ -633,24 +664,21 @@ def make_train_loop(env, model, cfg: PPOConfig, optimizer,
 
     if is_recurrent(model):
         def train_loop(env_state, obs, h, generator: torch.Generator,
-                       pool: LayoutPool | None = None,
-                       local_generator: torch.Generator | None = None):
+                       pool: LayoutPool | None = None):
             per_step = []
             for _ in range(steps_per_call):
                 env_state, obs, h, m = step(env_state, obs, h, generator,
-                                            pool, local_generator)
+                                            pool)
                 per_step.append(m)
             return env_state, obs, h, stacked(per_step)
 
         return train_loop
 
     def train_loop(env_state, obs, generator: torch.Generator,
-                   pool: LayoutPool | None = None,
-                   local_generator: torch.Generator | None = None):
+                   pool: LayoutPool | None = None):
         per_step = []
         for _ in range(steps_per_call):
-            env_state, obs, m = step(env_state, obs, generator, pool,
-                                     local_generator)
+            env_state, obs, m = step(env_state, obs, generator, pool)
             per_step.append(m)
         return env_state, obs, stacked(per_step)
 

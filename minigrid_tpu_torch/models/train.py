@@ -103,11 +103,9 @@ def _make_env(env_id, cfg: TrainConfig, dev):
 def _train(env_id, cfg: TrainConfig, log_fn, dev, mesh=None):
     env = _make_env(env_id, cfg, dev)
     pcfg = cfg.ppo
+    # every draw comes from g, seeded alike on every rank, as one process
+    # draws it (each rank keeps its rows of the global batch)
     g = env.generator(cfg.seed)
-    # the draws of the global batch come from g, seeded alike on every
-    # rank; a data rank's own layouts from its own generator
-    local = g if mesh is None else env.generator(M.rank_seed(cfg.seed,
-                                                             mesh))
     cls, init = ((ActorCriticRNN, init_params_rnn) if cfg.recurrent
                  else (ActorCritic, init_params))
     model = init(cls(view_size=env.params.view_size, hidden=cfg.hidden,
@@ -144,9 +142,9 @@ def _train(env_id, cfg: TrainConfig, log_fn, dev, mesh=None):
     t0 = time.perf_counter()
     for u in range(num_updates):
         if cfg.recurrent:
-            st, obs, h, m = train_step(st, obs, h, g, pool, local)
+            st, obs, h, m = train_step(st, obs, h, g, pool)
         else:
-            st, obs, m = train_step(st, obs, g, pool, local)
+            st, obs, m = train_step(st, obs, g, pool)
         if K > 1:  # metrics stacked (K,): report the last step's
             m = {k: v[-1] for k, v in m.items()}
         if pooled and (u + 1) % cfg.pool_refresh_every == 0:

@@ -3,10 +3,11 @@ variant over a mesh of ranks, at tiny shapes.
 
 Counterpart of ``__graft_entry__.py::dryrun_multichip``: pooled resets with
 the MLP (the throughput path; the layout pool replicated, the batch split
-over ``data``), fresh resets with the MLP (the buffer generated by each
-rank for its envs), and fresh resets with the recurrent policy (the hidden
-state split over ``data``), on a mesh that exercises the ``model`` axis
-too (``model_parallel=2`` from 4 ranks, as JAX picks it).
+over ``data``), fresh resets with the MLP (one global buffer, whole on
+every rank, routed over the data ranks), and fresh resets with the
+recurrent policy (the hidden state split over ``data``), on a mesh that
+exercises the ``model`` axis too (``model_parallel=2`` from 4 ranks, as
+JAX picks it).
 
     from minigrid_tpu_torch.parallel.dryrun import dryrun_multichip
     dryrun_multichip(2, device="cpu")            # spawns 2 gloo ranks
@@ -57,8 +58,7 @@ def _dryrun(n, model_parallel, dev) -> dict:
                                   device=dev).packed()
     cfg = PPOConfig(num_envs=8 * n, rollout_len=4, num_epochs=1,
                     num_minibatches=2)
-    g = env.generator(0)                          # alike on every rank
-    local = env.generator(M.rank_seed(0, mesh))   # this data rank's layouts
+    g = env.generator(0)  # alike on every rank: every draw comes from it
     out = {}
 
     def mlp():
@@ -72,14 +72,14 @@ def _dryrun(n, model_parallel, dev) -> dict:
     pool = env.make_pool(g, 16)
     obs, st = M.shard_batch(mesh, env.reset_staggered(g, cfg.num_envs))
     step = make_train_step(env, model, cfg, opt, resets="pooled", mesh=mesh)
-    st, obs, m = step(st, obs, g, pool, local)
+    st, obs, m = step(st, obs, g, pool)
     out["pooled+MLP"] = {k: float(v) for k, v in m.items()}
 
-    # 2. fresh resets + MLP (each rank's buffer, its share of 16 rows)
+    # 2. fresh resets + MLP (one buffer of 16 rows, routed globally)
     model, opt = mlp()
     step = make_train_step(env, model, cfg, opt, resets="fresh",
                            fresh_buffer=16, mesh=mesh)
-    st, obs, m = step(st, obs, g, None, local)
+    st, obs, m = step(st, obs, g)
     out["fresh+MLP"] = {k: float(v) for k, v in m.items()}
 
     # 3. fresh resets + the recurrent policy, its hidden state split
@@ -89,7 +89,7 @@ def _dryrun(n, model_parallel, dev) -> dict:
     h = rmodel.initial_state(cfg.num_envs // mesh.data_size)
     step = make_train_step(env, rmodel, cfg, make_optimizer(rmodel, cfg),
                            resets="fresh", fresh_buffer=16, mesh=mesh)
-    st, obs, h, m = step(st, obs, h, g, None, local)
+    st, obs, h, m = step(st, obs, h, g)
     out["fresh+RNN"] = {k: float(v) for k, v in m.items()}
     if mesh.rank == 0:
         for name, metrics in out.items():

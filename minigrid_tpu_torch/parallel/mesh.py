@@ -9,7 +9,9 @@ are explicit:
 - ``data``: batched env states and rollout tensors split their batch axis
   over the data ranks (contiguous blocks of B/n envs); the learner
   all-reduces its gradients and its statistics over them
-  (``models/ppo.py``). Nothing in the env path communicates.
+  (``models/ppo.py``), and the fresh reset all-reduces a step's finisher
+  counts over them to route one global buffer. Nothing else in the env
+  path communicates.
 - ``model``: dense kernels and embedding tables split their output features
   over the model ranks (tensor parallelism, :func:`param_spec`); each
   sharded layer's output is gathered before the next layer reads it.
@@ -276,14 +278,6 @@ def make_mesh(n_devices: int | None = None,
 # --------------------------------------------------------------------------
 # parameters: the tensor-parallel layout
 # --------------------------------------------------------------------------
-
-def rank_seed(seed: int, mesh: Mesh) -> int:
-    """The seed of a rank's own generator (its regen and fresh layouts):
-    distinct per data rank and from ``seed``, and one seed for the model
-    ranks of a data rank, which hold the same envs and must draw the same
-    layouts."""
-    return (seed * 1_000_003 + mesh.data_rank + 1) % (1 << 63)
-
 
 def param_spec(name: str, tensor: torch.Tensor) -> tuple:
     """Tensor-parallel layout of the parameter ``name`` of an

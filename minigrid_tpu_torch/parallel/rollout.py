@@ -2,10 +2,12 @@
 
 Counterpart of ``minigrid_tpu/parallel/rollout.py``: batched envs live on
 the device and every step runs through the fused kernel; under a mesh each
-rank steps its block of the batch, and nothing in the rollout communicates
-(the collectives are the learner's, ``models/ppo.py``). The rollout is
-``models/ppo.py::rollout`` with the policy's logits (or none: uniform
-actions) and the observations kept as they come.
+rank steps its block of the batch, and its chunk is its rows of the
+one-process rollout in every reset mode. Only the fresh reset
+communicates: one all-reduce of the ranks' finisher counts a step, which
+routes the one global buffer as JAX's batch-wide cumsum does under GSPMD.
+The rollout is ``models/ppo.py::rollout`` with the policy's logits (or
+none: uniform actions) and the observations kept as they come.
 """
 
 from __future__ import annotations
@@ -50,23 +52,22 @@ class _Actor:
 def make_rollout(env, policy: Callable | None = None, length: int = 128,
                  pooled: bool = False, resets: str | None = None,
                  fresh_buffer: int | None = None, mesh=None):
-    """Build ``rollout(model, env_state, obs, generator, pool=None,
-    local_generator=None) -> (env_state, obs, RolloutChunk)``: ``length``
-    steps of every env, the actions drawn from ``policy(model, obs) ->
-    logits`` (Gumbel-argmax), uniformly over the 7 actions when ``policy``
-    is None. Reset modes as in ``models/ppo.py::make_train_step``:
+    """Build ``rollout(model, env_state, obs, generator, pool=None) ->
+    (env_state, obs, RolloutChunk)``: ``length`` steps of every env, the
+    actions drawn from ``policy(model, obs) -> logits`` (Gumbel-argmax),
+    uniformly over the 7 actions when ``policy`` is None. Reset modes as in ``models/ppo.py::make_train_step``:
     ``"regen"`` (default), ``"pooled"`` (a ``LayoutPool`` as ``pool``) or
     ``"fresh"`` (a buffer of fresh layouts a rollout; ``fresh_buffer``
-    sizes it, required for dynamic-budget envs). The chunk holds the
-    observations each step started from, the actions, rewards and dones,
-    (T, B, ...).
+    sizes it, required for dynamic-budget envs, else it is sized from the
+    global batch). The chunk holds the observations each step started from,
+    the actions, rewards and dones, (T, B, ...).
 
     With a ``mesh`` the call is one data rank's: ``env_state`` and ``obs``
-    hold its block of the global batch, ``generator`` (seeded alike on
-    every rank) draws the global batch's keys and noise, of which the rank
-    keeps its block, so a pooled rollout's chunk is exactly its rows of the
-    one-process rollout; ``local_generator`` (the rank's own) generates the
-    regen and fresh layouts, and the fresh buffer is the rank's share."""
+    hold its block of the global batch, and ``generator`` (seeded alike on
+    every rank) draws what one process draws: the global batch's keys and
+    noise, its regen layouts (the rank keeps its rows of each) and the
+    whole fresh buffer, so the chunk is exactly the rank's rows of the
+    one-process rollout (``models/ppo.py::rollout``)."""
     if resets is None:
         resets = "pooled" if pooled else "regen"
     if resets not in P.RESET_MODES:
@@ -82,7 +83,7 @@ def make_rollout(env, policy: Callable | None = None, length: int = 128,
     ranks = 1 if mesh is None else mesh.data_size
 
     def rollout(model, env_state, obs, generator: torch.Generator,
-                pool=None, local_generator: torch.Generator | None = None):
+                pool=None):
         num_envs = env_state.batch_size * ranks
         cfg = P.PPOConfig(num_envs=num_envs, rollout_len=length)
         noise = P.sample_rollout_noise(
@@ -90,12 +91,11 @@ def make_rollout(env, policy: Callable | None = None, length: int = 128,
             length, NUM_ACTIONS, device=env_state.device)
         if mesh is not None:
             noise = noise.shard(mesh.batch_slice(num_envs))
-        n_buf, window = (P.fresh_sizes(env, cfg, fresh_buffer, ranks)
+        n_buf, window = (P.fresh_sizes(env, cfg, fresh_buffer)
                          if resets == "fresh" else (None, 32))
         env_state, obs, traj, _ = P.rollout(
             _Actor(policy, model), env, env_state, obs, noise, resets,
-            local_generator if local_generator is not None else generator,
-            n_buf, window)
+            generator, n_buf, window, mesh=mesh)
         return env_state, obs, RolloutChunk(traj.obs, traj.action,
                                             traj.reward, traj.done)
 

@@ -9,8 +9,9 @@ leading batch axis, beside the ``inner`` state it wraps.
 
 Every method takes and returns batch-leading tensors, as the bare envs'
 do: ``reset(generator, num_envs)``, ``step(keys, state, action)``,
-``step_autoreset(keys, state, action, generator)`` (the exact path: a fresh
-layout per reset) and the batched fast paths ``step_autoreset_presampled``,
+``step_autoreset(keys, state, action, generator, layouts=None)`` (the exact
+path: a fresh layout per reset, drawn from ``generator`` or given as the
+bare ``layouts``) and the batched fast paths ``step_autoreset_presampled``,
 ``step_autoreset_pooled`` and ``step_autoreset_fresh``.
 
 On the fast paths a stack runs as its base env (``_fast_plan``):
@@ -113,14 +114,6 @@ def _replace_inner(state, new_env_state):
     return new_env_state
 
 
-def _reset_from(env, states: EnvState):
-    """``env``'s reset (a wrapper stack's or a bare env's) with the given
-    bare layouts in place of generated ones."""
-    if isinstance(env, Wrapper):
-        return env.reset_from(states)
-    return env._observe(states), states
-
-
 class Wrapper:
     """Base pass-through wrapper; attributes it lacks come from the env it
     wraps."""
@@ -144,13 +137,13 @@ class Wrapper:
     def reset_from(self, states: EnvState):
         """This stack's reset with the given bare layouts (what
         :class:`ReseedWrapper` resets to)."""
-        return self._on_reset(*_reset_from(self.env, states))
+        return self._on_reset(*self.env.reset_from(states))
 
     def step(self, keys, state, action):
         return self.env.step(keys, state, action)
 
-    def step_autoreset(self, keys, state, action, generator):
-        return autoreset_step(self, keys, state, action, generator)
+    def step_autoreset(self, keys, state, action, generator, layouts=None):
+        return autoreset_step(self, keys, state, action, generator, layouts)
 
     def reset_staggered(self, generator: torch.Generator, num_envs: int):
         """This stack's reset (so that wrapper state is initialised), then
@@ -224,10 +217,10 @@ class Wrapper:
         return self._apply_obs_chain(obs, st), st, r, te, tr, i
 
     def step_autoreset_fresh(self, keys, states, actions, buffer, cursor,
-                             window: int = 32):
+                             window: int = 32, finishers=None):
         base, _ = self._fast_base()
         obs, st, r, te, tr, i, cur = base.step_autoreset_fresh(
-            keys, states, actions, buffer, cursor, window)
+            keys, states, actions, buffer, cursor, window, finishers)
         return self._apply_obs_chain(obs, st), st, r, te, tr, i, cur
 
     def make_pool(self, generator: torch.Generator, pool_size: int = 1024):
@@ -361,7 +354,7 @@ class ReseedWrapper(Wrapper):
             _idx = torch.full((num_envs,), self.seed_idx, dtype=torch.int32,
                               device=self.layouts.device)
         layouts = self.layouts.map(lambda x: x[_idx.to(torch.int64)])
-        obs, state = _reset_from(self.env, layouts)
+        obs, state = self.env.reset_from(layouts)
         n = self.layouts.batch_size
         return obs, WrappedState(inner=state,
                                  wrapper=((_idx + 1) % n).to(torch.int32))
@@ -373,7 +366,8 @@ class ReseedWrapper(Wrapper):
         obs, inner, r, te, tr, i = self.env.step(keys, state.inner, action)
         return obs, state.replace(inner=inner), r, te, tr, i
 
-    def step_autoreset(self, keys, state, action, generator):
+    def step_autoreset(self, keys, state, action, generator, layouts=None):
+        # the seeds dictate the layouts: neither argument is read
         obs, st, r, te, tr, i = self.step(keys, state, action)
         done = te | tr
         obs_r, st_r = self.reset(None, st.batch_size, _idx=state.wrapper)
@@ -450,10 +444,10 @@ class _StatefulFastPath(Wrapper):
             keys, states, actions, draw_pool_row(generator, pool))
 
     def step_autoreset_fresh(self, keys, states, actions, buffer, cursor,
-                             window: int = 32):
+                             window: int = 32, finishers=None):
         env, st, r, te, tr, w = self._batched_step(keys, states, actions)
         obs, st, info, cursor = _fresh_select(env, keys, st, te | tr, buffer,
-                                              cursor, window)
+                                              cursor, window, finishers)
         obs, ws = self._finish(obs, st, w)
         return obs, ws, r, te, tr, info, cursor
 
@@ -480,12 +474,6 @@ class _CountBonus(_StatefulFastPath):
                              dtype=torch.int32, device=state.device)
         return obs, WrappedState(inner=state, wrapper=counts)
 
-    def reset(self, generator, num_envs: int, _counts=None):
-        obs, state = super().reset(generator, num_envs)
-        if _counts is not None:
-            state = state.replace(wrapper=_counts)
-        return obs, state
-
     def _visit(self, counts, env_state, actions, reward):
         """(reward plus the bonus, counts with this step's visits)."""
         B = counts.shape[0]
@@ -502,14 +490,15 @@ class _CountBonus(_StatefulFastPath):
                                 action, r)
         return obs, state.replace(inner=inner, wrapper=counts), r, te, tr, i
 
-    def step_autoreset(self, keys, state, action, generator):
+    def step_autoreset(self, keys, state, action, generator, layouts=None):
         # the reset keeps this wrapper's counts; the stack beneath it
         # resets whole, so an inner stacked bonus's counts restart (the
         # JAX package's behaviour, kept)
         obs, st, r, te, tr, i = self.step(keys, state, action)
         done = te | tr
-        obs_r, st_r = self.reset(generator, st.batch_size,
-                                 _counts=st.wrapper)
+        obs_r, st_r = (self.reset(generator, st.batch_size) if layouts is None
+                       else self.reset_from(layouts))
+        st_r = st_r.replace(wrapper=st.wrapper)
         return (select_obs(done, obs, obs_r),
                 select_reset_states(done, st, st_r), r, te, tr, i)
 

@@ -33,19 +33,13 @@ from minigrid_tpu_torch.ops.fused_step import KERNEL, fused_observe
 from tests.torch_port_utils import (share_cpu,  # noqa: F401
                                     CPU, action_stream, assert_state_equal,
                                     chi2_same_distribution, doorkey_features,
-                                    export, jax_states)
+                                    export, fresh_case, jax_keys, jax_states)
 
 ALL_FIELDS = ("grid", "agent_pos", "agent_dir", "carrying", "step_count",
               "terminated", "truncated", "mission", "rng")
 DK8 = "MiniGrid-DoorKey-8x8-v0"
 
 pytestmark = pytest.mark.usefixtures("share_cpu")
-
-
-def _keys(seed, B):
-    """(JAX uint32 keys, the port's int32 view of the same bits)."""
-    k = np.array(jax.random.split(jax.random.PRNGKey(seed), B))
-    return jnp.asarray(k), torch.from_numpy(k.view(np.int32))
 
 
 def _stepped(env_id, B, steps=12, seed=0, view=None):
@@ -55,7 +49,7 @@ def _stepped(env_id, B, steps=12, seed=0, view=None):
     if view is not None:
         env = env.replace_params(view_size=view)
     step = jax.jit(jax.vmap(env.step_state))
-    keys, _ = _keys(seed + 1, B)
+    keys, _ = jax_keys(seed + 1, B)
     for a in action_stream("interact", steps, B, seed):
         st, *_ = step(keys, st, jnp.asarray(a))
     return env, st
@@ -78,19 +72,6 @@ def test_fused_observe_plain_matches_jax_gen_obs(env_id, view):
         assert (np.asarray(st.carrying)[:, 0] != C.EMPTY).any()
 
 
-def _fresh_case(B, n_buf, seed):
-    """JAX states near truncation (so resets happen), a JAX fresh buffer
-    and the port's copies."""
-    env, st = jax_states(DK8, B, seed)
-    ms = env.params.max_steps
-    st = st.replace(step_count=jnp.asarray(
-        ms - 1 - (np.arange(B) % 5), jnp.int32))
-    buf = jax.jit(lambda k: env.presample_fresh(k, n_buf))(
-        jax.random.PRNGKey(seed + 3))
-    penv = minigrid_tpu_torch.make(DK8, device=CPU).packed()
-    return env, st, buf, penv, export(st), export(buf)
-
-
 @pytest.mark.parametrize("n_buf,window,cursor0", [
     pytest.param(200, 40, 0, id="untouched"),
     pytest.param(200, 8, 0, id="window-overflow"),
@@ -100,7 +81,7 @@ def test_fresh_autoreset_matches_jax(n_buf, window, cursor0):
     """Five fresh auto-reset steps: obs, every state field (rng included),
     reward, flags, cursor and reset_overflow bit-exact."""
     Bsz, T = 96, 5
-    env, jst, jbuf, penv, pst, pbuf = _fresh_case(Bsz, n_buf, seed=1)
+    env, jst, jbuf, penv, pst, pbuf = fresh_case(Bsz, n_buf, seed=1)
     step = jax.jit(lambda k, s, a, c: j_autoreset_fresh(env, k, s, a, jbuf,
                                                         c, window))
     actions = action_stream("uniform", T, Bsz)
@@ -108,7 +89,7 @@ def test_fresh_autoreset_matches_jax(n_buf, window, cursor0):
     pc = torch.tensor(cursor0, dtype=torch.int32)
     overflow = 0
     for t in range(T):
-        jk, pk = _keys(10 + t, Bsz)
+        jk, pk = jax_keys(10 + t, Bsz)
         jo, jst, jr, jte, jtr, jinfo, jc = step(jk, jst,
                                                jnp.asarray(actions[t]), jc)
         po, pst, pr, pte, ptr, pinfo, pc = penv.step_autoreset_fresh(
@@ -132,9 +113,9 @@ def test_fresh_select_alone_matches_jax():
     """The select tail on its own, with a done mask that is not the
     state's flags (the JAX function takes it as given)."""
     Bsz = 64
-    env, jst, jbuf, penv, pst, pbuf = _fresh_case(Bsz, 80, seed=2)
+    env, jst, jbuf, penv, pst, pbuf = fresh_case(Bsz, 80, seed=2)
     done = np.random.default_rng(3).random(Bsz) < 0.5
-    jk, pk = _keys(4, Bsz)
+    jk, pk = jax_keys(4, Bsz)
     jo, js, jinfo, jc = jax.jit(
         lambda k, s, d: j_fresh_select(env, k, s, d, jbuf,
                                        jnp.asarray(60, jnp.int32), 32))(
@@ -156,7 +137,7 @@ def test_independent_pool_reset_matches_jax_given_indices():
     """JAX's independent draw (indices from the salted keys) replayed
     through the port's select with the same indices and pool rows."""
     Bsz, P = 96, 24
-    env, jst, _, penv, pst, _ = _fresh_case(Bsz, 8, seed=5)
+    env, jst, _, penv, pst, _ = fresh_case(Bsz, 8, seed=5)
     jpool = env.make_pool(jax.random.PRNGKey(6), P)
     ppool = layout_pool_from_entries(
         [jax.tree.map(np.asarray, jpool.entry(i)) for i in range(P)], CPU)
@@ -165,7 +146,7 @@ def test_independent_pool_reset_matches_jax_given_indices():
                                                       independent=True))
     n_done = 0
     for t in range(3):
-        jk, pk = _keys(20 + t, Bsz)
+        jk, pk = jax_keys(20 + t, Bsz)
         jo, jst, jr, jte, jtr, _ = step(jk, jst, jnp.asarray(actions[t]))
         salt = jnp.asarray([0x5DEECE66, 0xB5297A4D], jk.dtype)
         salt2 = jnp.asarray([0x68E31DA4, 0x1B56C4E9], jk.dtype)

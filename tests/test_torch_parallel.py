@@ -7,8 +7,11 @@ in a thread while the references are computed here) runs every
 multi-process check of ``tests/torch_parallel_ranks.py`` and hands each test
 its result; ``test_train_spawns_its_ranks`` lets ``train`` spawn its own.
 
-Tolerances: the sharded pooled rollout equals the one-process rollout bit
-for bit (its draws are the global batch's, each rank keeping its block).
+Tolerances: the sharded pooled, regen and fresh rollouts equal the
+one-process rollout bit for bit (every draw is the global batch's, each
+rank keeping its block; the fresh routing counts the finishers of the
+global batch), and the fresh routing over 2 ranks equals JAX's
+``_fresh_select`` on the global batch bit for bit.
 The update of a fixed trajectory over 2 ranks is within 1e-5 of one
 process and of JAX's update on every f32 parameter and metric (sums over
 the ranks and ``sum / count`` round otherwise than ``mean()``; Adam turns
@@ -21,6 +24,7 @@ orders)."""
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import os
 import pickle
 
@@ -33,6 +37,7 @@ import jax.numpy as jnp
 import torch
 
 import minigrid_tpu
+from minigrid_tpu.envs.base import _fresh_select as j_fresh_select
 from minigrid_tpu.envs.base import make_layout_pool as j_make_layout_pool
 from minigrid_tpu.models.actor_critic import ActorCritic as JActorCritic
 from minigrid_tpu.models.actor_critic import ActorCriticRNN as JActorCriticRNN
@@ -45,6 +50,7 @@ from minigrid_tpu.models.ppo import make_train_step as j_make_train_step
 from minigrid_tpu.parallel.mesh import param_spec as j_param_spec
 
 import minigrid_tpu_torch as mt
+from minigrid_tpu_torch import wrappers as W
 from minigrid_tpu_torch.convert import actor_critic_from_flax
 from minigrid_tpu_torch.models import ppo as P
 from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
@@ -56,10 +62,17 @@ from minigrid_tpu_torch.parallel import mesh as M
 
 from tests import torch_parallel_ranks as R
 from tests.torch_port_utils import (share_cpu,  # noqa: F401
+                                    export, fresh_case, jax_keys,
                                     jax_train_step_closures)
 
 pytestmark = pytest.mark.usefixtures("share_cpu")
 ATOL = 1e-5
+# JAX's fresh select on a global batch of 64 DoorKey-8x8 envs, 6 steps: the
+# first 32 envs (the first data rank's) finish at p=0.6 a step, the rest at
+# 0.05; the 16-row window overflows on the first rank's waves and the
+# 64-row buffer (one generator compile for the states and the buffer) runs
+# out
+FRESH_B, FRESH_STEPS, FRESH_BUFFER, FRESH_WINDOW = 64, 6, 64, 16
 
 
 def _np(tree):
@@ -69,7 +82,9 @@ def _np(tree):
 @pytest.fixture(scope="module")
 def jax_rollout():
     """A pooled JAX rollout of DoorKey-5x5 (B=32, T=16) by the f32
-    ``ActorCritic(hidden=32)``, its GAE and the JAX closures."""
+    ``ActorCritic(hidden=32)``, its GAE and the JAX closures; JAX's update
+    of each shuffle (:func:`_jax_update`) is computed in a thread from
+    here on (``"updates"``, a future), beside the payload and the ranks."""
     jcfg = JPPOConfig(num_envs=R.B, rollout_len=R.T, num_minibatches=4)
     jm = JActorCritic(hidden=32, dtype=jnp.float32)
     env = minigrid_tpu.make(R.ROLL_ENV).packed()
@@ -82,7 +97,7 @@ def jax_rollout():
         jax.random.split(jax.random.PRNGKey(2), R.B))
     _, last_obs, _, traj, _, _ = jax.jit(fns["rollout"])(
         params, st, obs, jax.random.PRNGKey(3), pool)
-    _, last_value = jm.apply(params, last_obs)
+    _, last_value = jax.jit(jm.apply)(params, last_obs)
     adv, ret = fns["gae"](traj, last_value)
     assert float(traj.done.sum()) > 0  # episodes end inside the rollout
     opt = j_make_optimizer(jcfg)
@@ -95,8 +110,12 @@ def jax_rollout():
         updates, state = opt.update(grads, state, params)
         return optax.apply_updates(params, updates), state, m
 
-    return {"params": params, "traj": traj, "last_obs": last_obs,
-            "adv": adv, "ret": ret, "step": step, "jcfg": jcfg}
+    out = {"params": params, "traj": traj, "last_obs": last_obs,
+           "adv": adv, "ret": ret, "step": step, "jcfg": jcfg}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        out["updates"] = pool.submit(
+            lambda: {s: _jax_update(out, s) for s in P.SHUFFLES})
+        yield out
 
 
 def _port_rollout(model, B=16, T=8, h=None):
@@ -133,20 +152,51 @@ def _tp_payload():
                     **_port_rollout(rnn, h=rnn.initial_state(16))}}
 
 
+def _fresh_routing_case():
+    """JAX's ``_fresh_select`` run step by step on the global batch (a
+    JAX-exported buffer, done masks that one rank's envs meet far more
+    often): the rank side's inputs (the port's copies) and JAX's result of
+    each step (the selected states' fields, the packed observation, the
+    cursor, ``reset_overflow``)."""
+    env, jst, jbuf, _, pst, pbuf = fresh_case(FRESH_B, FRESH_BUFFER,
+                                               seed=4)
+    rng = np.random.default_rng(5)
+    p = np.where(np.arange(FRESH_B) < FRESH_B // 2, 0.6, 0.05)
+    done = rng.random((FRESH_STEPS, FRESH_B)) < p
+    select = jax.jit(lambda k, s, d, c: j_fresh_select(
+        env, k, s, d, jbuf, c, FRESH_WINDOW))
+    keys, want = [], []
+    cursor = jnp.asarray(0, jnp.int32)
+    for t in range(FRESH_STEPS):
+        jk, pk = jax_keys(30 + t, FRESH_B)
+        obs, jst, info, cursor = select(jk, jst, jnp.asarray(done[t]),
+                                        cursor)
+        keys.append(pk.numpy())
+        want.append({"state": R.arrays(export(jst).tensors()),
+                     "packed": np.asarray(obs["packed"]),
+                     "cursor": int(cursor),
+                     "reset_overflow": int(info["reset_overflow"])})
+    case = {"env_id": "MiniGrid-DoorKey-8x8-v0", "state": pst,
+            "buffer": pbuf, "keys": np.stack(keys), "done": done,
+            "cursor": 0, "window": FRESH_WINDOW}
+    return case, want
+
+
 @pytest.fixture(scope="module")
 def workers(tmp_path_factory):
-    """The 2-rank group and ``train``'s own spawn, started at once in
-    threads (their results are futures) while this process computes the
-    references; the ranks wait for the payload (:func:`payload`) only
-    after the checks that need none."""
+    """The 2-rank group, ``train``'s own spawn and JAX's fresh routing case,
+    started at once in threads (their results are futures) while this
+    process computes the other references; the ranks wait for the payload
+    (:func:`payload`) only after the checks that need none."""
     tmp = tmp_path_factory.mktemp("ranks")
     (tmp / "spawned").mkdir()
     saved = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = str(R.THREADS)  # train's spawned ranks
     logged = []
     try:
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
             yield {"tmp": tmp, "logged": logged,
+                   "fresh_routing": pool.submit(_fresh_routing_case),
                    "ranks": pool.submit(M.spawn, R.rank_checks, R.RANKS,
                                         "gloo", R.CPU, (str(tmp),),
                                         timeout=600),
@@ -171,7 +221,8 @@ def payload(workers, jax_rollout):
                     "log_prob": traj.log_prob, "value": traj.value,
                     "reward": traj.reward, "done": traj.done},
            "last_obs": dict(_np(j["last_obs"])),
-           "tp": _tp_payload()}
+           "tp": _tp_payload(),
+           "fresh_routing": workers["fresh_routing"].result()[0]}
     tmp = workers["tmp"]
     with open(tmp / "payload.tmp", "wb") as f:
         pickle.dump(out, f)
@@ -221,7 +272,7 @@ def test_update_matches_one_process_and_jax(ranks, payload, jax_rollout,
     process and JAX's update, within 1e-5; the ranks' parameters
     bit-equal and their shared generators in one state."""
     one = R.update(payload, shuffle)
-    j_params, j_metrics = _jax_update(jax_rollout, shuffle)
+    j_params, j_metrics = jax_rollout["updates"].result()[shuffle]
     got = [r["update"][shuffle] for r in ranks.result()]
     for name, w in one["params"].items():
         np.testing.assert_array_equal(got[0]["params"][name],
@@ -294,6 +345,25 @@ def test_rank_layouts_refuse_what_cannot_run():
         M.init_ranks(2, "gloo", "cpu")
 
 
+def test_regen_layouts_are_the_global_batch_rows():
+    """A data rank's regen layouts are its rows of the global batch's, drawn
+    as one process draws them (the generator left in the same state); a
+    stack holding a ReseedWrapper draws none, as one process does not."""
+    env = mt.make(R.ROLL_ENV, device=R.CPU)
+    g, g_one = env.generator(8), env.generator(8)
+    got = P.regen_layouts(W.ActionBonus(env), g, 8, slice(4, 8))
+    want = env._gen_grid(g_one, 8)
+    for k, v in got.tensors().items():
+        np.testing.assert_array_equal(v.numpy(), want.tensors()[k][4:].numpy(),
+                                      err_msg=k)
+    np.testing.assert_array_equal(g.get_state().numpy(),
+                                  g_one.get_state().numpy())
+    stack = W.ImgObsWrapper(W.ReseedWrapper(env, seeds=(1, 2)))
+    assert P.regen_layouts(stack, g, 8, slice(4, 8)) is None
+    np.testing.assert_array_equal(g.get_state().numpy(),
+                                  g_one.get_state().numpy())
+
+
 # --- the rollouts ------------------------------------------------------------
 
 def test_sharded_rollout_matches_unsharded(ranks):
@@ -316,35 +386,94 @@ def test_sharded_rollout_matches_unsharded(ranks):
 
 
 def test_sharded_rollouts_make_no_collective_call(ranks):
-    """Nothing in the env path communicates: the pooled, regen and fresh
-    rollouts call no function of torch.distributed."""
-    assert [r["rollouts"]["dist_calls"] for r in ranks.result()] == [0, 0]
+    """Only the fresh reset communicates: the pooled and regen rollouts
+    call no function of torch.distributed, the fresh one one all-reduce a
+    step (the finisher counts)."""
+    for r in ranks.result():
+        assert r["rollouts"]["dist_calls"] == {"pooled": 0, "regen": 0,
+                                               "fresh": R.T}
 
 
 @pytest.mark.parametrize("resets", ["regen", "fresh"])
 def test_regen_and_fresh_rollouts_sharded(ranks, resets):
-    """JAX's test_rollout_driver_sharded invariants, and the ranks draw
-    different layouts (every env ends at the first step and resets from its
-    rank's own generator)."""
+    """Each rank's regen or fresh random-policy rollout is its block of the
+    one-process rollout, bit for bit (reward, done, action, packed obs,
+    final step count, grid and agent position): the regen layouts are the
+    global batch's, the fresh buffer is whole on every rank and routed by
+    the global ranks of the finishers, although the first rank's envs
+    finish twice as often as the second's."""
+    want, calls = R.reset_rollout(resets)
+    assert calls == 0
+    half = R.B // R.RANKS
+    assert want["done"][0, :half].all() and not want["done"][0, half:].any()
+    assert want["done"][9, half:].all() and want["done"].sum() >= 3 * half
     got = [r["rollouts"][resets] for r in ranks.result()]
-    env = mt.make(R.ROLL_ENV, device=R.CPU)
-    for g in got:
-        assert g["reward"].shape == (R.T, R.B // R.RANKS)
-        assert g["packed"].shape == (R.T, R.B // R.RANKS, 7, 7)
-        assert g["done"][0].all()
-        assert g["step_count"].max() <= env.params.max_steps
-    assert not np.array_equal(got[0]["packed"][1], got[1]["packed"][1])
+    for k, w in want.items():
+        axis = 1 if w.shape[:2] == (R.T, R.B) else 0
+        np.testing.assert_array_equal(
+            np.concatenate([g[k] for g in got], axis=axis), w, err_msg=k)
+
+
+@functools.lru_cache(maxsize=1)
+def _one_process_train_steps():
+    return R.train_step_generators()
 
 
 def test_train_steps_keep_the_shared_generator_in_step(ranks):
     """After a pooled and a fresh policy-driven train step on 2 ranks, the
-    shared generators are in one state, the ranks' own ones in two, and
-    the parameters are bit-equal."""
+    shared generators are in one state, that of one process after the same
+    steps, and the parameters are bit-equal."""
+    one = _one_process_train_steps()
     got = [r["generators"] for r in ranks.result()]
-    np.testing.assert_array_equal(got[0]["shared"], got[1]["shared"])
-    assert not np.array_equal(got[0]["local"], got[1]["local"])
+    for g in got:
+        np.testing.assert_array_equal(g["shared"], one["shared"])
     for name, p in got[0]["params"].items():
         np.testing.assert_array_equal(p, got[1]["params"][name])
+
+
+def test_fresh_train_step_matches_one_process(ranks):
+    """The policy-driven train steps of the test above against one
+    process: the rollouts' actions equal, the fresh step's
+    ``reset_overflow`` (nonzero: its buffer runs out) equal, and the f32
+    parameters within 1e-5."""
+    one = _one_process_train_steps()
+    got = [r["generators"] for r in ranks.result()]
+    np.testing.assert_array_equal(
+        np.concatenate([g["actions"] for g in got], axis=2), one["actions"])
+    assert one["reset_overflow"] > 0
+    for g in got:
+        assert g["reset_overflow"] == one["reset_overflow"]
+        for name, w in one["params"].items():
+            np.testing.assert_allclose(g["params"][name], w, rtol=0,
+                                       atol=ATOL, err_msg=name)
+
+
+def test_fresh_routing_over_ranks_matches_jax(ranks, workers):
+    """JAX's ``_fresh_select`` on a global batch of 64, against the port's
+    routing over 2 ranks of 32 (each rank its rows of the states, keys and
+    done masks, the whole buffer, ``finisher_counts``), 6 steps in which the
+    first rank's envs finish 12x as often as the second's: each step's
+    selected states and observations (the ranks' rows joined), the cursor
+    on each rank and ``reset_overflow`` summed over the ranks, bit for
+    bit; one all-reduce a step."""
+    _, want = workers["fresh_routing"].result()
+    got = [r["fresh_routing"] for r in ranks.result()]
+    for g in got:
+        assert g["dist_calls"] == FRESH_STEPS
+    overflow = 0
+    for t, w in enumerate(want):
+        steps = [g["steps"][t] for g in got]
+        for k, v in w["state"].items():
+            np.testing.assert_array_equal(
+                np.concatenate([s["state"][k] for s in steps]), v,
+                err_msg=f"step {t}: {k}")
+        np.testing.assert_array_equal(
+            np.concatenate([s["packed"] for s in steps]), w["packed"])
+        assert [s["cursor"] for s in steps] == [w["cursor"]] * R.RANKS
+        assert sum(s["reset_overflow"] for s in steps) == \
+            w["reset_overflow"], f"step {t}"
+        overflow += w["reset_overflow"]
+    assert overflow > 0 and want[-1]["cursor"] > FRESH_BUFFER
 
 
 # --- train ---------------------------------------------------------------------
@@ -429,9 +558,8 @@ def test_tensor_parallel_matches_unsharded(ranks, payload, name):
 def test_tensor_parallel_ranks_hold_the_same_envs(ranks, step):
     """The two model ranks of a (1, 2) mesh after a fresh or a regen train
     step in which every env ends: the env states, the observations, the
-    metrics and the replicated parameters bit-equal (the ranks draw the
-    layouts of their data rank alike), and their own generators in one
-    state."""
+    metrics and the replicated parameters bit-equal (every reset draw comes
+    from the shared generator), and their generators in one state."""
     got = [r["tp"]["steps"] for r in ranks.result()]
     a, b = got[0][step], got[1][step]
     for k, v in a["state"].items():
@@ -440,9 +568,7 @@ def test_tensor_parallel_ranks_hold_the_same_envs(ranks, step):
         np.testing.assert_array_equal(v, b["obs"][k], err_msg=k)
     assert a["metrics"] == b["metrics"]
     R.full_params(a["specs"], [a["shards"], b["shards"]])
-    for gen in ("shared", "local"):
-        np.testing.assert_array_equal(got[0]["generators"][gen],
-                                      got[1]["generators"][gen])
+    np.testing.assert_array_equal(got[0]["generator"], got[1]["generator"])
 
 
 def test_dryrun_multichip(ranks):

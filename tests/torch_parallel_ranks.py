@@ -15,6 +15,7 @@ import torch
 import torch.distributed as dist
 
 import minigrid_tpu_torch as mt
+from minigrid_tpu_torch.envs.base import _fresh_select
 from minigrid_tpu_torch.models import ppo as P
 from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
                                                     ActorCriticRNN,
@@ -33,6 +34,8 @@ B, T = 32, 16               # the rollouts' global batch and length
 UPDATE_SEED = 7             # the shared generator of the update checks
 PAYLOAD = "payload.pkl"     # the test's references' inputs, in its tmp dir
 TRAIN_ENV = "MiniGrid-Empty-5x5-v0"
+RESET_BUDGET = 10           # max_steps of the regen/fresh rollouts
+FRESH_STEP_BUFFER = 12      # the fresh train step's buffer: it overflows
 TRAIN_RUNS = {"pooled": dict(resets="pooled"),
               "fresh": dict(resets="fresh"),
               "fresh+RNN": dict(resets="fresh", recurrent=True)}
@@ -91,32 +94,44 @@ class CountDistCalls:
             setattr(dist, k, f)
 
 
+def reset_rollout(resets: str, mesh=None):
+    """The random-policy regen or fresh rollout of DoorKey-5x5 with a
+    10-step budget (B=32, T=16): the first half of the envs starts one step
+    before its budget ends, the rest at 0, so over 2 data ranks the first
+    rank's envs finish at steps 0 and 10 and the second's at step 9 (the
+    fresh routing must count the first rank's finishers before the
+    second's). The mesh's data rank's part or one process's, as numpy:
+    (the chunk and the final state's fields, torch.distributed calls)."""
+    env = mt.make(ROLL_ENV, device=CPU).packed().replace_params(
+        max_steps=RESET_BUDGET)
+    g = env.generator(2)
+    obs, st = env.reset(g, B)
+    st = st.replace(step_count=torch.where(
+        torch.arange(B) < B // 2, RESET_BUDGET - 1, 0).to(torch.int32))
+    if mesh is not None:
+        obs, st = M.shard_batch(mesh, (obs, st))
+    rollout = make_rollout(env, None, length=T, resets=resets, mesh=mesh)
+    with CountDistCalls() as calls:
+        st, obs, chunk = rollout(None, st, obs, g)
+    return arrays({"reward": chunk.reward, "done": chunk.done,
+                   "action": chunk.action, "packed": chunk.obs["packed"],
+                   "step_count": st.step_count, "grid": st.grid,
+                   "agent_pos": st.agent_pos}), calls.calls
+
+
 def rollouts(mesh) -> dict:
-    """The pooled rollout, and the regen and fresh ones from envs that all
-    end at the first step (so step 1 shows the layouts the rank drew from
-    its own generator), with the calls of ``torch.distributed`` counted."""
-    out = {}
+    """The pooled, regen and fresh random-policy rollouts of the data rank,
+    each with its count of torch.distributed calls."""
     with CountDistCalls() as calls:
         pool, chunk, st = pooled_rollout(mesh)
-        out["pooled"] = {"reward": chunk.reward, "action": chunk.action,
-                         "done": chunk.done, "packed": chunk.obs["packed"],
-                         "grid": st.grid, "agent_pos": st.agent_pos,
-                         "pool_grid": pool.grid, "pool_scal": pool.scal}
-        for resets in ("regen", "fresh"):
-            env = mt.make(ROLL_ENV, device=CPU).packed()
-            g = env.generator(2)
-            obs, st = M.shard_batch(mesh, env.reset(g, B))
-            st = st.replace(step_count=torch.full_like(
-                st.step_count, env.params.max_steps - 1))
-            rollout = make_rollout(env, None, length=T, resets=resets,
-                                   mesh=mesh)
-            st, obs, chunk = rollout(None, st, obs, g, None,
-                                     env.generator(M.rank_seed(100, mesh)))
-            out[resets] = {"reward": chunk.reward, "done": chunk.done,
-                           "packed": chunk.obs["packed"],
-                           "step_count": st.step_count}
-    out = arrays(out)
-    out["dist_calls"] = calls.calls
+    out = {"pooled": arrays({
+        "reward": chunk.reward, "action": chunk.action, "done": chunk.done,
+        "packed": chunk.obs["packed"], "grid": st.grid,
+        "agent_pos": st.agent_pos, "pool_grid": pool.grid,
+        "pool_scal": pool.scal})}
+    out["dist_calls"] = {"pooled": calls.calls}
+    for resets in ("regen", "fresh"):
+        out[resets], out["dist_calls"][resets] = reset_rollout(resets, mesh)
     return out
 
 
@@ -145,23 +160,45 @@ def update(payload: dict, shuffle: str, mesh=None) -> dict:
             "generator": g.get_state().numpy()}
 
 
-def train_step_generators(mesh) -> dict:
-    """One pooled and one fresh train step (policy-driven) on the mesh:
-    the shared and the rank's own generator states after them."""
-    env = mt.make(ROLL_ENV, device=CPU).packed()
+def train_step_generators(mesh=None) -> dict:
+    """One pooled and one fresh policy-driven train step of the f32
+    ``ActorCritic(hidden=32)`` on DoorKey-5x5 with a 10-step budget (B=16
+    staggered, T=8: most envs end in each rollout, and the fresh step's
+    12-row buffer overflows), on the mesh or in one process: the shared
+    generator's state after them, the parameters, the fresh step's
+    ``reset_overflow`` and the actions of both rollouts (the data rank's
+    block)."""
+    env = mt.make(ROLL_ENV, device=CPU).packed().replace_params(
+        max_steps=RESET_BUDGET)
     cfg = P.PPOConfig(num_envs=16, rollout_len=8, num_minibatches=2)
-    g, local = env.generator(3), env.generator(M.rank_seed(200, mesh))
-    model = init_params(ActorCritic(hidden=32, device=CPU), env.generator(4))
+    g = env.generator(3)
+    model = init_params(ActorCritic(hidden=32, dtype=torch.float32,
+                                    device=CPU), env.generator(4))
     opt = P.make_optimizer(model, cfg)
     pool = env.make_pool(g, 16)
-    obs, st = M.shard_batch(mesh, env.reset_staggered(g, cfg.num_envs))
-    for resets in ("pooled", "fresh"):
-        step = P.make_train_step(env, model, cfg, opt, resets=resets,
-                                 mesh=mesh)
-        st, obs, _ = step(st, obs, g, pool, local)
+    obs, st = env.reset_staggered(g, cfg.num_envs)
+    if mesh is not None:
+        obs, st = M.shard_batch(mesh, (obs, st))
+    actions, rollout = [], P.rollout
+
+    def recorded(*args, **kw):  # the train step's rollout, its actions kept
+        out = rollout(*args, **kw)
+        actions.append(out[2].action)
+        return out
+
+    P.rollout = recorded
+    try:
+        for resets in ("pooled", "fresh"):
+            step = P.make_train_step(env, model, cfg, opt, resets=resets,
+                                     fresh_buffer=FRESH_STEP_BUFFER,
+                                     mesh=mesh)
+            st, obs, m = step(st, obs, g, pool)
+    finally:
+        P.rollout = rollout
     return {"shared": g.get_state().numpy(),
-            "local": local.get_state().numpy(),
-            "params": arrays(model.state_dict())}
+            "params": arrays(model.state_dict()),
+            "reset_overflow": int(m["reset_overflow"]),
+            "actions": arrays(torch.stack(actions))}
 
 
 def train_config(name: str, ckpt: str | None, devices: int = RANKS):
@@ -241,12 +278,11 @@ def tensor_parallel_steps(mesh) -> dict:
     and a regen policy-driven train step of the sharded ``ActorCritic(128)``
     and a fresh one of ``ActorCriticRNN(128)``, on DoorKey-5x5 with a
     6-step budget (every env ends inside the rollout, so each rank draws
-    layouts from its own generator). Per step: the env state, the
-    observations, the metrics and the parameters' shards; then both
-    generators' states."""
+    reset layouts). Per step: the env state, the observations, the metrics
+    and the parameters' shards; then the shared generator's state."""
     env = mt.make(ROLL_ENV, device=CPU).packed().replace_params(max_steps=6)
     cfg = P.PPOConfig(num_envs=16, rollout_len=8, num_minibatches=2)
-    g, local = env.generator(5), env.generator(M.rank_seed(5, mesh))
+    g = env.generator(5)
     out = {}
     for name, (resets, recurrent) in TP_STEPS.items():
         cls, init = ((ActorCriticRNN, init_params_rnn) if recurrent
@@ -258,16 +294,41 @@ def tensor_parallel_steps(mesh) -> dict:
                                  resets=resets, mesh=mesh)
         if recurrent:
             st, obs, _, m = step(st, obs, model.initial_state(cfg.num_envs),
-                                 g, None, local)
+                                 g)
         else:
-            st, obs, m = step(st, obs, g, None, local)
+            st, obs, m = step(st, obs, g)
         out[name] = {"state": arrays(st.tensors()), "obs": arrays(obs),
                      "metrics": {k: float(v) for k, v in m.items()},
                      "shards": arrays(model.state_dict()),
                      "specs": M.param_shardings(mesh, model)}
-    out["generators"] = {"shared": g.get_state().numpy(),
-                         "local": local.get_state().numpy()}
+    out["generator"] = g.get_state().numpy()
     return out
+
+
+def fresh_routing(case: dict, mesh) -> dict:
+    """JAX's fresh select replayed over the data ranks: the rank's rows of
+    the exported DoorKey-8x8 states, the whole exported buffer, and per
+    step its rows of the keys and of the done mask, routed with
+    ``models/ppo.py::finisher_counts``. Per step, the selected states'
+    fields (the rank's rows), the packed observation, the cursor and the
+    rank's ``reset_overflow``; and the torch.distributed calls."""
+    env = mt.make(case["env_id"], device=CPU).packed()
+    rows = mesh.batch_slice(case["done"].shape[1])
+    st = case["state"].map(lambda x: x[rows])
+    cursor = torch.tensor(case["cursor"], dtype=torch.int32)
+    finishers = P.finisher_counts(mesh)
+    steps = []
+    with CountDistCalls() as calls:
+        for keys, done in zip(case["keys"], case["done"]):
+            obs, st, info, cursor = _fresh_select(
+                env, torch.from_numpy(keys[rows]), st,
+                torch.from_numpy(done[rows]), case["buffer"], cursor,
+                case["window"], finishers)
+            steps.append({"state": arrays(st.tensors()),
+                          "packed": arrays(obs["packed"]),
+                          "cursor": int(cursor),
+                          "reset_overflow": int(info["reset_overflow"])})
+    return {"steps": steps, "dist_calls": calls.calls}
 
 
 def wait_for_payload(tmp: str, timeout: float = 600.0) -> dict:
@@ -295,6 +356,7 @@ def rank_checks(tmp: str) -> dict:
            "dryrun": dryrun_multichip(RANKS, device=CPU)[0]}
     payload = wait_for_payload(tmp)
     out["update"] = {s: update(payload, s, mesh) for s in P.SHUFFLES}
+    out["fresh_routing"] = fresh_routing(payload["fresh_routing"], mesh)
     out["tp"] = tensor_parallel(payload)
     return out
 

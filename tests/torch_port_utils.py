@@ -53,6 +53,32 @@ def jax_states(env_id: str, batch: int, seed: int = 0, packed: bool = True):
     return env, states
 
 
+def jax_keys(seed: int, B: int):
+    """(JAX uint32 keys, the port's int32 view of the same bits)."""
+    k = np.array(jax.random.split(jax.random.PRNGKey(seed), B))
+    return jax.numpy.asarray(k), torch.from_numpy(k.view(np.int32))
+
+
+def fresh_case(B: int, n_buf: int, seed: int):
+    """DoorKey-8x8: JAX states near truncation (so resets happen), a JAX
+    fresh buffer and the port's copies: (JAX env, states, buffer, the
+    port's env, states, buffer)."""
+    import minigrid_tpu_torch
+
+    env_id = "MiniGrid-DoorKey-8x8-v0"
+    # the states of jax_states(env_id, B, seed) and the buffer of
+    # env.presample_fresh(PRNGKey(seed + 3), n_buf), both drawn by the
+    # cached jitted generator (one compile per batch size)
+    env, _, gen = jax_env_fns(env_id)
+    st = gen(jax.random.split(jax.random.PRNGKey(seed), B))
+    ms = env.params.max_steps
+    st = st.replace(step_count=jax.numpy.asarray(
+        ms - 1 - (np.arange(B) % 5), jax.numpy.int32))
+    buf = gen(jax.random.split(jax.random.PRNGKey(seed + 3), n_buf))
+    penv = minigrid_tpu_torch.make(env_id, device=CPU).packed()
+    return env, st, buf, penv, export(st), export(buf)
+
+
 def export(states):
     """Batched JAX EnvState -> the port's EnvState on the CPU."""
     return env_state_from_numpy(jax.tree.map(np.asarray, states), CPU)
