@@ -56,6 +56,14 @@ Phases, each fatal on failure:
    ActorCriticRNN(hidden=256) bf16, truncated BPTT over the rotate
    slabs); then one rotate epoch of the f32 update, MLP and recurrent, on
    the card against the same epoch on the CPU;
+4b. the package surface: the names of the six packages' ``__all__``
+   resolve (the JAX package's lists), then ``env.vector(4096)`` on the
+   card: DoorKey-8x8 for 128 steps, BabyAI-GoToObj (a hook env) and
+   ActionBonus(DoorKey-8x8) (a stack's own pair) for 32, uniform actions,
+   the regen layouts drawn on the card and given to the step, each
+   (step, observe) launch count (T, T), and each run replayed on the CPU
+   from the same layouts, keys and actions, bit for bit; the DoorKey-8x8
+   rate beside phase 4's regen rollout;
 5. timings: the rollout, pure packed stepping, and the kernel's device
    time per launch (profiler) at T=1 and T=128 for B=4096 and at T=128 for
    B=65536, with the group width G chosen for each, and the observe
@@ -746,6 +754,148 @@ def wfc_product_ms(preset="ObstaclesAngular", B=BATCH, shape=(23, 23)):
             lambda: torch.matmul(x, adj_t[0]), 20)
     out["product_flop"] = 2 * B * shape[0] * shape[1] * P * P  # unpadded
     return out
+
+
+# --- phase 4b: the package surface -------------------------------------------
+# the JAX package's public names on the port, and ``vector(n)`` at full width:
+# (env id, wrapper or None, steps); each batch's step counts are set 1 to
+# ``steps`` short of its episode budget, so every env resets in the run
+SURFACE_CASES = [(ENV_ID, None, ROLLOUT_LEN), ("BabyAI-GoToObj-v0", None, 32),
+                 (ENV_ID, "ActionBonus", 32)]
+
+
+def surface_vector_run(env_id, wrapper, T, B=BATCH):
+    """``reset, step = env.vector(B)`` on the card, T steps of uniform
+    actions with the regen layouts drawn on the card and given to ``step``,
+    launches counted from 0 just before the steps and read just after;
+    then the same layouts, keys and actions replayed on the CPU through the
+    CPU env's ``vector(B)``: observations, states, rewards and flags bit
+    for bit. Returns the run's numbers."""
+    import torch
+
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch import wrappers as WR
+    from minigrid_tpu_torch.envs.base import random_keys
+    from minigrid_tpu_torch.ops.fused_step import KERNEL
+
+    def stack(device):
+        env = mt.make(env_id, device=device).packed()
+        return env, (env if wrapper is None else getattr(WR, wrapper)(env))
+
+    base, env = stack("cuda")
+    cpu_base, cpu_env = stack("cpu")
+    reset, step = env.vector(B)
+    g = base.generator(SEED + 11)
+    obs, st = reset(g)
+    want_shapes = {k: (B,) + v for k, v in env.obs_shape().items()}
+    if {k: tuple(v.shape) for k, v in obs.items()} != want_shapes:
+        raise AssertionError(f"vector({B}) reset: shapes differ from "
+                             f"obs_shape() {want_shapes}")
+    inner = st.inner if wrapper else st
+    budget = (inner.extra["max_steps"] if inner.extra is not None
+              and "max_steps" in inner.extra
+              else torch.full((B,), base.params.max_steps, device="cuda"))
+    inner = inner.replace(step_count=(budget - 1 - torch.arange(
+        B, device="cuda") % T).to(torch.int32))
+    st = st.replace(inner=inner) if wrapper else inner
+    st0 = st.map(lambda x: x.cpu())
+    record = []
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(T):
+        keys = random_keys(g, (B, 2), "cuda")
+        a = torch.randint(0, 7, (B,), generator=g, device="cuda",
+                          dtype=torch.int32)
+        layouts = base._gen_grid(g, B)
+        out = step(keys, st, a, g, layouts)
+        st = out[1]
+        record.append((keys, a, layouts, out))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = (KERNEL.launches, KERNEL.observe_launches)
+    name = short(env_id) if wrapper is None else f"{wrapper}({short(env_id)})"
+    if launches != (T, T):
+        raise AssertionError(f"{name} vector({B}): (step, observe) launches "
+                             f"{launches}, expected ({T}, {T})")
+    # the CPU replay
+    _, cpu_step = cpu_env.vector(B)
+    cg = cpu_base.generator(SEED)
+    st_c, resets, bonus_steps = st0, 0, 0
+    for t, (keys, a, layouts, out) in enumerate(record):
+        ref = cpu_step(keys.cpu(), st_c, a.cpu(), cg,
+                       layouts.map(lambda x: x.cpu()))
+        for what, x, y in zip(("obs", "state", "reward", "terminated",
+                               "truncated"), out[:5], ref[:5]):
+            assert_same(f"{name} vector step {t} {what}", x, y)
+        for k, v in out[0].items():
+            if v.shape != want_shapes[k]:
+                raise AssertionError(f"{name} step {t}: obs {k} shape")
+        if not torch.isfinite(out[2]).all():
+            raise AssertionError(f"{name} step {t}: reward not finite")
+        resets += int((out[3] | out[4]).sum())
+        # the stack's own reward: ActionBonus adds 1/sqrt(N) > 0 to every
+        # env's, the bare env's is 0 but at the goal
+        bonus_steps += int((out[2] > 0).all())
+        st_c = ref[1]
+    if resets < B:
+        raise AssertionError(f"{name}: {resets} resets in {T} steps")
+    if wrapper is not None and (bonus_steps != T or not isinstance(
+            st, WR.WrappedState)):
+        raise AssertionError(f"{name}: vector() did not step the stack "
+                             f"({bonus_steps} of {T} steps with a bonus "
+                             f"everywhere, state {type(st).__name__})")
+    rate = B * T / secs
+    print(f"  {name} vector({B}): {T} steps in {secs * 1e3:.1f} ms, "
+          f"{rate:.0f} env-steps/s (host clock, the regen layouts drawn in "
+          f"the loop); {launches[0]} step + {launches[1]} observe launches; "
+          f"{resets} resets; card == CPU replay bit for bit")
+    return {"steps": T, "batch": B, "seconds": secs, "env_steps_per_s": rate,
+            "launches": launches[0], "observe_launches": launches[1],
+            "resets": resets}
+
+
+def surface_phase(card: str, regen_rollout_rate: float) -> dict:
+    """Phase 4b: the re-exports resolve, then :data:`SURFACE_CASES`
+    through ``vector(4096)`` (:func:`surface_vector_run`); the DoorKey-8x8
+    rate is printed beside ``regen_rollout_rate``, the regen rollout's
+    env-steps/s of phase 4 in the same call."""
+    import importlib
+
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch.envs import DoorKeyEnv
+
+    t0 = time.perf_counter()
+    names = 0
+    for package in ("", ".models", ".utils", ".envs", ".ops", ".core"):
+        mod = importlib.import_module("minigrid_tpu_torch" + package)
+        for name in mod.__all__:
+            getattr(mod, name)
+            names += 1
+    from minigrid_tpu_torch import MissionSpace, refresh_layout_pool  # noqa
+    from minigrid_tpu_torch.models import PPOConfig, train  # noqa: F401
+    from minigrid_tpu_torch.ops import fused_rollout, fused_step
+    from minigrid_tpu_torch.utils import BabyAIBot  # noqa: F401
+
+    env = mt.make(ENV_ID, device="cuda")
+    if not (fused_rollout is fused_step.fused_rollout
+            and isinstance(env, DoorKeyEnv) and type(env).name == "DoorKey"):
+        raise AssertionError("the package surface does not resolve")
+    print(f"package surface: the {names} names of the six packages' "
+          f"__all__ resolve")
+    runs = {}
+    for env_id, wrapper, T in SURFACE_CASES:
+        name = (short(env_id) if wrapper is None
+                else f"{wrapper}({short(env_id)})")
+        runs[name] = surface_vector_run(env_id, wrapper, T)
+    secs = time.perf_counter() - t0
+    dk = runs[short(ENV_ID)]
+    print(f"vector({BATCH}) of {short(ENV_ID)}: {dk['env_steps_per_s']:.0f} "
+          f"env-steps/s against the regen rollout's "
+          f"{regen_rollout_rate:.0f} (phase 4, the policy in the loop); "
+          f"phase 4b took {secs:.1f} s (host clock; {card})")
+    return {"vector": runs, "regen_rollout_env_steps_per_s":
+            regen_rollout_rate, "seconds": secs}
 
 
 # --- phase 7: the multi-device layer -----------------------------------------
@@ -2194,6 +2344,11 @@ def main() -> int:
           f"(B x T = {BATCH * ROLLOUT_LEN} a step)")
     torch.cuda.empty_cache()
 
+    # --- 4b. the package surface: the re-exports, vector(4096) ------------
+    surface = surface_phase(card, BATCH * ROLLOUT_LEN
+                            / train["regen"]["rollout_s"])
+    torch.cuda.empty_cache()
+
     # the recurrent train step at full width: DoorKey-8x8 fresh, B=4096,
     # T=128, ActorCriticRNN(hidden=256) bf16, PPOConfig() (the JAX bench's
     # ppo_train_step_rnn configuration, bench.py:308-339): one warm-up step
@@ -2904,10 +3059,14 @@ def main() -> int:
                    + multi_device["ranks_step_launches"]
                    + multi_device["world_of_one_launches"])
 
-    # the train steps' launches, with phase 7's
+    # the train steps' launches, with phase 4b's and phase 7's
+    vector_runs = surface["vector"]
     main_steps = (sum(t["launches"] for t in train.values())
+                  + sum(v["launches"] for v in vector_runs.values())
                   + sum(n[0] for n in p7_launches))
     main_observes = (sum(t["observe_launches"] for t in train.values())
+                     + sum(v["observe_launches"]
+                           for v in vector_runs.values())
                      + sum(n[1] for n in p7_launches))
     kernels = [{
         "name": "fused_step",
@@ -2918,6 +3077,8 @@ def main() -> int:
         "launches_per_train_step": {k: t["launches_per_step"]
                                     for k, t in train.items()},
         "launches_pooled_rollout": launches,
+        # phase 4b: each env.vector(4096) run (128 or 32 steps)
+        "launches_vector": {k: v["launches"] for k, v in vector_runs.items()},
         # phase 7: each rank's rollout and train step at B=2048, and the
         # world-of-one steps (NCCL f32, gloo f32, NCCL bf16, gloo bf16)
         "launches_multi_device": {
@@ -2972,6 +3133,8 @@ def main() -> int:
         | {f"{k} (B=256 replay)": w["launches_per_step"][1]
            for k, w in wrappers.items()},
         "launches_per_frame": frame_launches,
+        "launches_vector": {k: v["observe_launches"]
+                            for k, v in vector_runs.items()},
         "launches_bot": {short(k): v["launches"][1]
                          for k, v in bot_runs.items()},
         "launches_demos": demo_launches[1],
@@ -3038,6 +3201,7 @@ def main() -> int:
                       "generation": generated, "render": render_times,
                       "wrapped_stepping": stepping,
                       "wrappers": wrappers, "wfc": wfc,
+                      "surface": surface,
                       "multi_device": multi_device}))
     print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s from the "
           f"import of torch to the result")

@@ -8,7 +8,11 @@ plain PyTorch version for the CPU. Imports no JAX: the JAX package
 
 from minigrid_tpu_torch.core.actions import Actions
 from minigrid_tpu_torch.core.types import EnvParams, EnvState
-from minigrid_tpu_torch.envs.base import LayoutPool, make_layout_pool
+from minigrid_tpu_torch.envs.base import (
+    LayoutPool,
+    make_layout_pool,
+    refresh_layout_pool,
+)
 from minigrid_tpu_torch.registry import make, register, registered_ids
 from minigrid_tpu_torch import register_envs as _register_envs
 
@@ -21,8 +25,21 @@ __all__ = [
     "EnvParams",
     "EnvState",
     "LayoutPool",
+    "MissionSpace",
     "make",
     "make_layout_pool",
+    "refresh_layout_pool",
     "register",
     "registered_ids",
 ]
+
+
+def __getattr__(name):
+    # MissionSpace subclasses gymnasium's Space where gymnasium is
+    # installed, so it is imported at its first use: the package itself
+    # imports no gymnasium
+    if name == "MissionSpace":
+        from minigrid_tpu_torch.core.mission_space import MissionSpace
+
+        return MissionSpace
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

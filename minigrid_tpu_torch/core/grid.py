@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.core.types import device_of
 
 
 def _per_env(v, device) -> torch.Tensor:
@@ -86,6 +87,62 @@ def wall_rect(grid, x, y, w, h):
     grid = vert_wall(grid, x, y, h)
     grid = fill_rect(grid, x + w - 1, y, 1, h, C.WALL_CELL)
     return grid
+
+
+def get_cell(grid: torch.Tensor, x, y) -> torch.Tensor:
+    """The cell at (x, y) of each env: (B, 5) from a (B, W, H, 5) batch
+    with int or (B,) coordinates, (5,) from one (W, H, 5) grid. An
+    out-of-range read gives the empty cell."""
+    batch = grid if grid.ndim == 4 else grid[None]
+    B, W, H, _ = batch.shape
+    dev = batch.device
+    x = torch.as_tensor(x, device=dev).to(torch.int64).expand(B)
+    y = torch.as_tensor(y, device=dev).to(torch.int64).expand(B)
+    inb = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+    cell = batch[torch.arange(B, device=dev), x.clamp(0, W - 1),
+                 y.clamp(0, H - 1)]
+    cell = torch.where(inb[:, None], cell, _cell(C.EMPTY_CELL, dev))
+    return cell if grid.ndim == 4 else cell[0]
+
+
+def encode(grid: torch.Tensor,
+           vis_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., W, H, 3) uint8 observation encoding (reference
+    grid.py:244-268): the first three channels, and (0, 0, 0), unseen,
+    where ``vis_mask`` ((..., W, H) bool) is False."""
+    img = grid[..., :3]
+    if vis_mask is not None:
+        img = torch.where(vis_mask[..., None], img, 0)
+    return img
+
+
+def decode(array, device=None) -> torch.Tensor:
+    """Inverse of :func:`encode` on a (..., 3) array (reference
+    grid.py:270-289): the contents channels are zeroed. On ``device``,
+    else on the array's (``types.device_of``)."""
+    a = torch.as_tensor(array, device=device_of(array, device=device)).to(
+        torch.uint8)
+    if a.shape[-1] != 3:
+        raise ValueError(f"decode takes (..., 3) arrays, got {tuple(a.shape)}")
+    return torch.cat([a, a.new_zeros(a.shape[:-1] + (2,))], dim=-1)
+
+
+def transparent_mask(grid: torch.Tensor) -> torch.Tensor:
+    """(..., W, H) bool — per-cell ``see_behind`` (world_object.py:57-59,
+    164, 181): neither a wall nor a door that is not open."""
+    t = grid[..., 0]
+    closed_door = (t == C.DOOR) & (grid[..., 2] != C.OPEN)
+    return ~((t == C.WALL) | closed_door)
+
+
+def can_overlap_mask(grid: torch.Tensor) -> torch.Tensor:
+    """(..., W, H) bool — cells the agent may enter (world_object.py:
+    45-47, 177): the types of ``constants.CAN_OVERLAP_TABLE``, and open
+    doors."""
+    t = grid[..., 0]
+    table = torch.as_tensor(C.CAN_OVERLAP_TABLE, device=grid.device)
+    open_door = (t == C.DOOR) & (grid[..., 2] == C.OPEN)
+    return table[t.long()] | open_door
 
 
 def free_mask(grid: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from minigrid_tpu_torch.core import constants as C
+
 # Fixed token length for tokenized mission strings (the JAX package's value).
 MISSION_LEN = 96
 
@@ -28,6 +30,17 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' explicitly to "
             "run on the CPU")
     return torch.device("cuda")
+
+
+def device_of(*values, device=None) -> torch.device:
+    """The device of an entry point that takes tensors or plain values:
+    ``device`` when given, else the first tensor's, else the card
+    (:func:`resolve_device`)."""
+    if device is None:
+        for v in values:
+            if isinstance(v, torch.Tensor):
+                return v.device
+    return resolve_device(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +118,21 @@ class EnvParams:
         if self.view_size % 2 != 1 or self.view_size < 3:
             raise ValueError(f"view_size must be odd and >= 3, got "
                              f"{self.view_size}")
+
+
+def is_carrying(state: EnvState) -> torch.Tensor:
+    """(B,) bool: whether each agent carries an object."""
+    return state.carrying[..., 0] != C.EMPTY
+
+
+def pack_cell(type_idx, color_idx=0, state_idx=0, cont_type=0, cont_color=0,
+              device=None) -> torch.Tensor:
+    """A (..., 5) uint8 cell from its channels, each an int or a tensor:
+    ints give one (5,) cell, (B,) tensors one cell per env (JAX
+    ``pack_cell``, under ``vmap``). On ``device``, else on the tensors'
+    (:func:`device_of`)."""
+    chans = (type_idx, color_idx, state_idx, cont_type, cont_color)
+    dev = device_of(*chans, device=device)
+    chans = [torch.as_tensor(c, device=dev).to(torch.uint8) for c in chans]
+    shape = torch.broadcast_shapes(*(c.shape for c in chans))
+    return torch.stack([c.expand(shape) for c in chans], dim=-1)

@@ -81,6 +81,9 @@ class LayoutPool:
     def size(self) -> int:
         return self.grid.shape[0]
 
+    def replace(self, **kw) -> "LayoutPool":
+        return dataclasses.replace(self, **kw)
+
     def rows(self, idx) -> "LayoutPool":
         """The pool restricted to rows ``idx`` (an int keeps one row)."""
         if isinstance(idx, int):
@@ -93,9 +96,8 @@ class LayoutPool:
     def _map(self, fn) -> "LayoutPool":
         extra = (None if self.extra is None
                  else {k: fn(v) for k, v in self.extra.items()})
-        return dataclasses.replace(self, grid=fn(self.grid),
-                                   scal=fn(self.scal),
-                                   mission=fn(self.mission), extra=extra)
+        return self.replace(grid=fn(self.grid), scal=fn(self.scal),
+                            mission=fn(self.mission), extra=extra)
 
     def entry(self, i: int) -> EnvState:
         """Pool entry ``i`` as a batch-of-one EnvState (rng zero)."""
@@ -419,6 +421,26 @@ def hooked_step(env, keys, states: EnvState, actions):
     return new, obs, reward, term, trunc
 
 
+def vector_pair(env, n: int):
+    """``env.vector(n)``: JAX's ``(vmap(reset), vmap(step_autoreset))``
+    pair with the batch size bound, for a bare env or a wrapper stack:
+    ``reset(generator)`` resets ``n`` envs, ``step(keys, states, actions,
+    generator, layouts=None)`` is the stack's regen auto-reset
+    (``step_autoreset``) and raises unless the batch holds ``n`` envs."""
+    def reset(generator: torch.Generator):
+        return env.reset(generator, n)
+
+    def step(keys, states, actions, generator: torch.Generator,
+             layouts: EnvState | None = None):
+        if states.batch_size != n or len(actions) != n:
+            raise ValueError(f"vector({n}) steps {n} envs, got states of "
+                             f"{states.batch_size} and {len(actions)} "
+                             "actions")
+        return env.step_autoreset(keys, states, actions, generator, layouts)
+
+    return reset, step
+
+
 def _actions(actions) -> torch.Tensor:
     return torch.as_tensor(actions).to(torch.int32).contiguous()
 
@@ -427,6 +449,7 @@ class MiniGridEnv:
     """Base batched env. Instances are static config (``params``) and the
     device; all episode data lives in the batched :class:`EnvState`."""
 
+    name: str = "MiniGridEnv"
     reward_range = (0, 1)  # minigrid_env.py:61; DynamicObstacles overrides
     # transition wrappers composed into this env's step, outermost first
     # (set on a copy of the env by ``wrappers._composed_step_env``)
@@ -439,6 +462,14 @@ class MiniGridEnv:
     def __init__(self, params: EnvParams, device=None):
         self.params = params
         self.device = resolve_device(device)
+
+    def obs_shape(self) -> dict:
+        """One env's observation shapes, by key (the batch adds B in
+        front)."""
+        v = self.params.view_size
+        view = ({"packed": (v, v)} if self.params.packed_obs
+                else {"image": (v, v, 3)})
+        return view | {"direction": (), "mission": (MISSION_LEN,)}
 
     def packed(self) -> "MiniGridEnv":
         """Copy of this env emitting packed observations."""
@@ -600,6 +631,12 @@ class MiniGridEnv:
     def make_pool(self, generator: torch.Generator,
                   pool_size: int = 1024) -> LayoutPool:
         return make_layout_pool(self, generator, pool_size)
+
+    def vector(self, n: int):
+        """(reset, step) over a batch of ``n`` envs (:func:`vector_pair`):
+        ``reset(generator)`` and ``step(keys, states, actions, generator,
+        layouts=None)``, the regen auto-reset :meth:`step_autoreset`."""
+        return vector_pair(self, n)
 
     def generator(self, seed: int) -> torch.Generator:
         """A ``torch.Generator`` on this env's device, seeded."""

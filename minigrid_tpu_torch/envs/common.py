@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.core.types import pack_cell
 
 GREEN = C.COLOR_TO_IDX["green"]
 BLUE = C.COLOR_TO_IDX["blue"]
@@ -39,14 +40,25 @@ SORTED_COLOR_IDS = np.array([C.COLOR_TO_IDX[n] for n in C.COLOR_NAMES],
 def cells(type_idx, color=0, state=0, cont_type=0, cont_color=0,
           device=None) -> torch.Tensor:
     """A (B, 5) uint8 cell per env from channel values, each an int or a
-    (B,) tensor (JAX ``pack_cell`` under ``vmap``)."""
-    chans = [torch.as_tensor(v, device=device).to(torch.int64)
-             for v in (type_idx, color, state, cont_type, cont_color)]
-    shape = torch.broadcast_shapes(*(c.shape for c in chans))
-    if not shape:
-        shape = (1,)
-    return torch.stack([c.expand(shape) for c in chans], dim=-1).to(
-        torch.uint8)
+    (B,) tensor (JAX ``pack_cell`` under ``vmap``); ints give B=1."""
+    return pack_cell(type_idx, color, state, cont_type, cont_color,
+                     device).reshape(-1, C.NUM_CHANNELS)
+
+
+def door(color, state=C.CLOSED, device=None) -> torch.Tensor:
+    return pack_cell(C.DOOR, color, state, device=device)
+
+
+def key(color, device=None) -> torch.Tensor:
+    return pack_cell(C.KEY, color, device=device)
+
+
+def ball(color, device=None) -> torch.Tensor:
+    return pack_cell(C.BALL, color, device=device)
+
+
+def box(color, cont_type=0, cont_color=0, device=None) -> torch.Tensor:
+    return pack_cell(C.BOX, color, 0, cont_type, cont_color, device)
 
 
 def randint(generator: torch.Generator, lo, hi, n: int,

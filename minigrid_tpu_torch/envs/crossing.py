@@ -19,6 +19,7 @@ from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class CrossingEnv(MiniGridEnv):
+    name = "Crossing"
     __doc__ = env_doc(
         """
         The agent crosses a square room from the top-left corner to the

@@ -13,6 +13,7 @@ from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class DistShiftEnv(MiniGridEnv):
+    name = "DistShift"
     __doc__ = env_doc(
         """
         A distribution-shift probe modeled on DeepMind's AI safety

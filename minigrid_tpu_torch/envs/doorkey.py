@@ -20,6 +20,7 @@ YELLOW_KEY = [C.KEY, YELLOW, 0, 0, 0]
 
 
 class DoorKeyEnv(MiniGridEnv):
+    name = "DoorKey"
     __doc__ = env_doc(
         """
         A wall with a single locked yellow door splits the room in two; the

@@ -33,6 +33,7 @@ BALL_CELL = [C.BALL, X.BLUE, 0, 0, 0]
 
 
 class DynamicObstaclesEnv(MiniGridEnv):
+    name = "Dynamic-Obstacles"
     __doc__ = env_doc(
         """
         An empty room populated with blue balls that jump to a random free

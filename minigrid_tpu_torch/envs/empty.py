@@ -25,6 +25,7 @@ class EmptyParams(EnvParams):
 
 
 class EmptyEnv(MiniGridEnv):
+    name = "Empty"
     __doc__ = env_doc(
         """
         A bare walled room whose only feature is the green goal square in

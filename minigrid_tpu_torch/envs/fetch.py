@@ -17,6 +17,7 @@ from minigrid_tpu_torch.envs import common as X
 from minigrid_tpu_torch.envs.base import MiniGridEnv, random_keys
 from minigrid_tpu_torch.envs.envdoc import env_doc
 
+OBJ_TYPES = [C.KEY, C.BALL]
 TYPE_NAMES = ["key", "ball"]
 SYNTAXES = ["get a", "go get a", "fetch a", "go fetch a", "you must fetch a"]
 
@@ -29,6 +30,7 @@ MISSIONS = mission_table([
 
 
 class FetchEnv(MiniGridEnv):
+    name = "Fetch"
     __doc__ = env_doc(
         """
         A room scattered with keys and balls of assorted colors. The

@@ -15,6 +15,7 @@ from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class FourRoomsEnv(MiniGridEnv):
+    name = "FourRooms"
     __doc__ = env_doc(
         """
         The classic four-rooms layout from the options/HRL literature: a

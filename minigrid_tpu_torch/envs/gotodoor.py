@@ -25,6 +25,7 @@ MISSIONS = mission_table([
 
 
 class GoToDoorEnv(MiniGridEnv):
+    name = "GoToDoor"
     __doc__ = env_doc(
         """
         A single room with one door of a distinct color centered in each of

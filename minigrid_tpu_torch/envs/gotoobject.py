@@ -46,6 +46,7 @@ def adjacent(pos, target) -> torch.Tensor:
 
 
 class GoToObjectEnv(MiniGridEnv):
+    name = "GoToObject"
     __doc__ = env_doc(
         """
         A room containing several colored objects (keys, balls, boxes).

@@ -23,6 +23,7 @@ KIND_OF = {"key": 0, "ball": 1, "box": 2}
 
 
 class KeyCorridorEnv(PickupTargetMixin, RoomGridEnv):
+    name = "KeyCorridor"
     __doc__ = env_doc(
         """
         A corridor flanked by rooms on both sides; the target object waits

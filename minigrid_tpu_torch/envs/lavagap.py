@@ -12,6 +12,7 @@ from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class LavaGapEnv(MiniGridEnv):
+    name = "LavaGap"
     __doc__ = env_doc(
         """
         The room is split by one vertical strip of deadly lava with a

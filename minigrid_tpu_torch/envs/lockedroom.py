@@ -25,6 +25,7 @@ MISSIONS = mission_table([
 
 
 class LockedRoomEnv(MiniGridEnv):
+    name = "LockedRoom"
     __doc__ = env_doc(
         """
         Six rooms open onto a central hallway; one of them is locked and

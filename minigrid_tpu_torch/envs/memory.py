@@ -23,6 +23,7 @@ GREEN_BALL = [C.BALL, X.GREEN, 0, 0, 0]
 
 
 class MemoryEnv(MiniGridEnv):
+    name = "MemoryS"
     __doc__ = env_doc(
         """
         A memory probe: the agent begins in a small chamber containing one

@@ -36,6 +36,7 @@ def _sel(cond, choices):
 
 
 class MultiRoomEnv(MiniGridEnv):
+    name = "MultiRoom"
     __doc__ = env_doc(
         """
         A chain of connected rooms, each entered through a colored door

@@ -31,6 +31,8 @@ class ObstructedMazeEnv(PickupTargetMixin, RoomGridEnv):
     """A blue ball in a maze of locked doors, keys in boxes, blocked
     doorways."""
 
+    name = "ObstructedMaze"
+
     def mission_space(self):
         """Reference obstructedmaze.py:93-96."""
         from minigrid_tpu_torch.core.mission_space import (MissionSpace,

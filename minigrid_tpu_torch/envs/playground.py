@@ -15,6 +15,7 @@ from minigrid_tpu_torch.envs.envdoc import env_doc
 
 
 class PlaygroundEnv(MiniGridEnv):
+    name = "Playground"
     __doc__ = env_doc(
         """
         A 3x3 arrangement of rooms joined by doors, scattered with a dozen

@@ -30,6 +30,7 @@ MISSIONS = mission_table([
 
 
 class PutNearEnv(MiniGridEnv):
+    name = "PutNear"
     __doc__ = env_doc(
         """
         Several objects share one room; the instruction names a mover

@@ -27,6 +27,7 @@ def door_open(grid, pos) -> torch.Tensor:
 
 
 class RedBlueDoorEnv(MiniGridEnv):
+    name = "RedBlueDoors"
     __doc__ = env_doc(
         """
         The agent starts at a random pose in a room that has a red door on

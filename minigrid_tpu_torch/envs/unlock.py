@@ -28,6 +28,7 @@ def _box_target(box_color) -> dict:
 
 
 class UnlockEnv(RoomGridEnv):
+    name = "Unlock"
     __doc__ = env_doc(
         """
         Two rooms joined by a locked door, with the matching key lying in
@@ -71,6 +72,7 @@ class UnlockEnv(RoomGridEnv):
 
 
 class UnlockPickupEnv(PickupTargetMixin, RoomGridEnv):
+    name = "UnlockPickup"
     __doc__ = env_doc(
         """
         The target box sits in a second room behind a locked door; the key
@@ -116,6 +118,7 @@ class UnlockPickupEnv(PickupTargetMixin, RoomGridEnv):
 
 
 class BlockedUnlockPickupEnv(PickupTargetMixin, RoomGridEnv):
+    name = "BlockedUnlockPickup"
     __doc__ = env_doc(
         """
         Like UnlockPickup — a box to fetch from behind a locked door —

@@ -53,7 +53,8 @@ from minigrid_tpu_torch.envs.base import (_actions, _fresh_select,
                                           autoreset_step,
                                           broadcast_candidates,
                                           draw_pool_row, hooked_step,
-                                          select_obs, select_reset_states)
+                                          select_obs, select_reset_states,
+                                          vector_pair)
 from minigrid_tpu_torch.envs.common import hash_scores
 from minigrid_tpu_torch.ops.fused_step import check_view_size, fused_observe
 from minigrid_tpu_torch.render import get_frame
@@ -144,6 +145,13 @@ class Wrapper:
 
     def step_autoreset(self, keys, state, action, generator, layouts=None):
         return autoreset_step(self, keys, state, action, generator, layouts)
+
+    def vector(self, n: int):
+        """(reset, step) over a batch of ``n`` envs of this stack, from its
+        own ``reset`` and ``step_autoreset`` (``envs.base.vector_pair``);
+        defined here so that ``__getattr__`` never hands out the bare
+        env's."""
+        return vector_pair(self, n)
 
     def reset_staggered(self, generator: torch.Generator, num_envs: int):
         """This stack's reset (so that wrapper state is initialised), then

@@ -349,11 +349,13 @@ def test_benchmark_batched_failure_is_raised(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_gymnasium():
-    """The package and its entry points import no JAX, and ``compat``
-    (gymnasium) only when asked for."""
+    """The package, its subpackages' re-exports and its entry points
+    import no JAX, and ``compat`` (gymnasium) only when asked for."""
     code = ("import sys, minigrid_tpu_torch, minigrid_tpu_torch.benchmark, "
             "minigrid_tpu_torch.envs.wfc.graphtransforms, "
-            "minigrid_tpu_torch.utils.introspect; "
+            "minigrid_tpu_torch.utils.introspect, minigrid_tpu_torch.models, "
+            "minigrid_tpu_torch.utils, minigrid_tpu_torch.envs, "
+            "minigrid_tpu_torch.ops, minigrid_tpu_torch.core; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'minigrid_tpu', 'gymnasium', 'pygame')]; "
             "assert not bad, bad")
