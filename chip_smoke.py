@@ -9,7 +9,9 @@ Phases, each fatal on failure:
 2. the fused step kernel against its plain PyTorch version on the card,
    bit-exact on every output, for every case below (another view size and
    every group width G among them); then its observe entry against plain
-   ``gen_obs`` on states taken after interaction steps, bit-exact; then
+   ``gen_obs`` on states taken after interaction steps, bit-exact (views 3,
+   7 and 9, every G on 8x8 and on 25x25 with ragged batches, 25x25 and
+   22x22 at full width, see-through walls at view 33); then
    both entries on states of each of the 14 other families (B=1024, T=32,
    the interaction stream; MultiRoom's 25x25, RedBlueDoors' 16x8 and the
    see-through families among them), the step entry with and without a
@@ -68,7 +70,10 @@ Phases, each fatal on failure:
    time per launch (profiler) at T=1 and T=128 for B=4096 and at T=128 for
    B=65536, with the group width G chosen for each, and the observe
    entry's at B=4096, beside their bounds (the larger of the byte and the
-   integer-operation bound) and the plain versions' times (CUDA events);
+   integer-operation bound; the observe entry's from the bytes its
+   windows need, beside the bound had it read whole grids, and the time of
+   ``zero_()`` on its output, the launch floor) and the plain versions'
+   times (CUDA events);
    the same at B=4096 on MultiRoom-N6 (25x25), RedBlueDoors-8x8 (16x8),
    Fetch-8x8-N3 (see-through walls), BabyAI-BossLevel (22x22) and
    ObstructedMaze-Full (16x16), with each launch geometry; generation of a
@@ -339,6 +344,13 @@ def device_ms(fn, reps: int, kernel: str = "fused_step_kernel") -> float:
                          f"expected {reps}")
 
 
+def zero_ms(out, reps: int) -> float:
+    """Device time of ``out.zero_()``, one fill kernel: the floor of a
+    launch that writes ``out`` (``device_ms`` over every device kernel of
+    the calls, with its retries for dropped records)."""
+    return device_ms(out.zero_, reps, kernel="")
+
+
 def device_ms_all(fn, reps: int):
     """(mean device time in ms of everything one call of ``fn`` runs on the
     card, device kernels and copies a call), from the profiler's CUDA
@@ -408,6 +420,42 @@ def observe_bound_ms(states, obs, view_size: int):
     """The observe entry's bound: bytes, or the window read, tests and
     flood of ``step_ops`` without the transition."""
     by_bytes = observe_bytes(states, obs) / HBM_BYTES_PER_S * 1e3
+    by_ops = (states.batch_size * (step_ops(view_size) - 30)
+              / INT32_OPS_PER_S * 1e3)
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def observe_window_bytes(states, view_size: int) -> int:
+    """Bytes the observe entry needs for these states: per env the in-grid
+    cells of its V x V window (5 bytes each; the window is V consecutive
+    grid columns by V rows, placed by the env's position and direction),
+    its 17 bytes of scalars (position, direction, carried cell) and the
+    4 V^2 bytes of the view it writes."""
+    V = view_size
+    B, W, H = states.grid.shape[:3]
+    d = states.agent_dir.long()
+    pos = states.agent_pos.long()
+    ofx = (d == 0).long() - (d == 2).long()
+    ofy = (d == 1).long() - (d == 3).long()
+    orx, ory = -ofy, ofx
+    # view cell (vx, vy) is world (tlx + orx*vx - ofx*vy, tly + ory*vx -
+    # ofy*vy): the window's first column and row
+    x0 = (pos[:, 0] + ofx * (V - 1) - orx * (V // 2)
+          + (orx.clamp(max=0) + (-ofx).clamp(max=0)) * (V - 1))
+    y0 = (pos[:, 1] + ofy * (V - 1) - ory * (V // 2)
+          + (ory.clamp(max=0) + (-ofy).clamp(max=0)) * (V - 1))
+    nx = ((x0 + V).clamp(max=W) - x0.clamp(min=0)).clamp(min=0)
+    ny = ((y0 + V).clamp(max=H) - y0.clamp(min=0)).clamp(min=0)
+    return 5 * int((nx * ny).sum()) + B * (17 + 4 * V * V)
+
+
+def observe_window_bound_ms(states, view_size: int):
+    """The observe entry's bound from what these states need: the window
+    bytes (``observe_window_bytes``) over the HBM rate, or the operations
+    of ``observe_bound_ms``, whichever is larger."""
+    by_bytes = (observe_window_bytes(states, view_size) / HBM_BYTES_PER_S
+                * 1e3)
     by_ops = (states.batch_size * (step_ops(view_size) - 30)
               / INT32_OPS_PER_S * 1e3)
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
@@ -1615,7 +1663,7 @@ def main() -> int:
     from minigrid_tpu_torch.ops.fused_step import (
         GROUP_LANES, KERNEL, _fused_observe_cuda, _fused_rollout_cuda,
         fused_observe_reference, fused_rollout_reference, has_step_hooks,
-        launch_geometry, sm_count)
+        launch_geometry, observe_launch_geometry, sm_count)
 
     from minigrid_tpu_torch.utils.demos import bot_episodes, reset_seeds
     from minigrid_tpu_torch.benchmark import benchmark
@@ -1651,6 +1699,12 @@ def main() -> int:
           f"{geometry(BATCH, 16, 8)}; BossLevel 22x22 B={BATCH}: "
           f"{geometry(BATCH, 22, 22)}; ObstructedMaze-Full 16x16 B={BATCH}: "
           f"{geometry(BATCH, 16, 16)}")
+    for view in (7, 33, 63):
+        geo = observe_launch_geometry(BATCH, view, sms)
+        print(f"  observe entry B={BATCH} view {view} (any grid): "
+              f"G={geo.group_lanes}, {geo.envs_per_block} envs x "
+              f"{geo.blocks} blocks, {geo.threads} threads, "
+              f"{geo.shared_memory_bytes} bytes of shared memory per block")
 
     # --- 2. kernel against plain version -------------------------------
     def check(name, env_id, B, T, hint=None, reset=False, native=False,
@@ -1708,7 +1762,8 @@ def main() -> int:
 
     # the observe entry against plain gen_obs, on states after 16
     # interaction steps (doors opened, keys carried)
-    def check_observe(name, env_id, B, view=None, group_lanes=None):
+    # (at the picked G, or at each G of ``widths`` on the same states)
+    def check_observe(name, env_id, B, view=None, widths=(None,)):
         env = mt.make(env_id, device="cuda").packed()
         if view is not None:
             env = env.replace_params(view_size=view)
@@ -1718,17 +1773,21 @@ def main() -> int:
         acts = choice[torch.randint(0, 8, (16, B), generator=g,
                                     device="cuda")].to(torch.int32)
         st = _fused_rollout_cuda(env.params, st, acts, False, None, None)[0]
-        got = _fused_observe_cuda(env.params, st, group_lanes)
-        torch.cuda.synchronize()
         want = fused_observe_reference(env.params, st)
-        err = (got.double() - want.double()).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"observe entry: {name} differs from plain "
-                                 f"gen_obs (max abs {err})")
         carried = int((st.carrying[:, 0] != 1).sum())
-        print(f"observe == plain: {name} ({carried} envs carrying; max_abs_"
-              f"err {err})")
-        return err
+        errs = []
+        for G in widths:
+            got = _fused_observe_cuda(env.params, st, G)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs().max().item()
+            at = "" if G is None else f" G={G}"
+            if not torch.equal(got, want):
+                raise AssertionError(f"observe entry: {name}{at} differs "
+                                     f"from plain gen_obs (max abs {err})")
+            print(f"observe == plain: {name}{at} ({carried} envs carrying; "
+                  f"max_abs_err {err})")
+            errs.append(err)
+        return max(errs)
 
     observe_errs = [
         check_observe("DoorKey-8x8 B=4096", ENV_ID, BATCH),
@@ -1738,8 +1797,22 @@ def main() -> int:
         check_observe("DoorKey-8x8 ragged B=4000", ENV_ID, 4000),
         check_observe("DoorKey-8x8 view size 9 B=4096", ENV_ID, BATCH,
                       view=9),
-    ] + [check_observe(f"DoorKey-8x8 G={G} B=1001", ENV_ID, 1001,
-                       group_lanes=G) for G in GROUP_LANES]
+        check_observe("DoorKey-8x8 B=1001", ENV_ID, 1001,
+                      widths=GROUP_LANES),
+        # the window read from device memory: view 3, 25x25 at full width
+        # and at every G with a ragged last block, 22x22 ragged, the wide
+        # views' early stop with see-through walls (which never stop)
+        check_observe("DoorKey-8x8 view size 3 B=4096", ENV_ID, BATCH,
+                      view=3),
+        check_observe("MultiRoom-N6 25x25 B=4096",
+                      "MiniGrid-MultiRoom-N6-v0", BATCH),
+        check_observe("MultiRoom-N6 25x25 B=1001",
+                      "MiniGrid-MultiRoom-N6-v0", 1001, widths=GROUP_LANES),
+        check_observe("BossLevel 22x22 ragged B=1001", "BabyAI-BossLevel-v0",
+                      1001),
+        check_observe("Fetch-8x8-N3 see-through view 33 B=1024",
+                      "MiniGrid-Fetch-8x8-N3-v0", 1024, view=33),
+    ]
     # both entries on states of every other family: the step entry with
     # and without a reset row, and the observe entry
     for env_id in CORE_FAMILIES + HOOK_FAMILIES:
@@ -1787,21 +1860,29 @@ def main() -> int:
             wide_errs.append(check(f"{name} B=1024 T=32 reset-row entry",
                                    env_id, 1024, 32, hint="interact",
                                    reset=True, view=view))
-            wide_observe_errs.append(check_observe(f"{name} B=1024",
-                                                   env_id, 1024, view=view))
+            widths = [None]
             for G in GROUP_LANES:
+                # one warp of G-lane envs may not fit: the step entry's
+                # block holds their grids, the observe entry's their views
                 try:
                     launch_geometry(1024, wp.width, wp.height, view, sms, G)
-                except ValueError:  # one warp of G-lane envs does not fit
-                    print(f"  {name}: G={G} does not fit the shared memory")
-                    continue
-                wide_errs.append(check(f"{name} G={G} B=1024 T=8",
-                                       env_id, 1024, 8, hint="interact",
-                                       reset=True, view=view,
-                                       group_lanes=G))
-                wide_observe_errs.append(check_observe(
-                    f"{name} G={G} B=1024", env_id, 1024, view=view,
-                    group_lanes=G))
+                except ValueError:
+                    print(f"  {name}: G={G} does not fit the step entry's "
+                          f"shared memory")
+                else:
+                    wide_errs.append(check(f"{name} G={G} B=1024 T=8",
+                                           env_id, 1024, 8, hint="interact",
+                                           reset=True, view=view,
+                                           group_lanes=G))
+                try:
+                    observe_launch_geometry(1024, view, sms, G)
+                except ValueError:
+                    print(f"  {name}: G={G} does not fit the observe "
+                          f"entry's shared memory")
+                else:
+                    widths.append(G)
+            wide_observe_errs.append(check_observe(
+                f"{name} B=1024", env_id, 1024, view=view, widths=widths))
     wide_err = max(wide_errs)
     wide_observe_err = max(wide_observe_errs)
 
@@ -2567,9 +2648,16 @@ def main() -> int:
     ms_o = device_ms(run_o, 200, kernel="fused_observe_kernel")
     plain_ms_o = cuda_ms(lambda: fused_observe_reference(p, st0), 10)
     bound_o, by_o = observe_bound_ms(st0, run_o(), V)
-    print(f"  observe entry B={BATCH}, G={groups[f't1_b{BATCH}']}: "
-          f"{ms_o * 1e3:.2f} us (bound {bound_o * 1e3:.2f} us by {by_o}, "
-          f"{observe_bytes(st0, run_o()) / 1e6:.2f} MB; plain version "
+    window_o, window_by_o = observe_window_bound_ms(st0, V)
+    obs_o = run_o()
+    floor_o = zero_ms(obs_o, 200)
+    print(f"  observe entry B={BATCH}, G="
+          f"{observe_launch_geometry(BATCH, V, sms).group_lanes}: "
+          f"{ms_o * 1e3:.2f} us (window bound {window_o * 1e3:.2f} us by "
+          f"{window_by_o}, {observe_window_bytes(st0, V) / 1e6:.2f} MB; "
+          f"whole-grid bound {bound_o * 1e3:.2f} us by {by_o}, "
+          f"{observe_bytes(st0, obs_o) / 1e6:.2f} MB; zero_() of its "
+          f"output {floor_o * 1e3:.2f} us; plain version "
           f"{plain_ms_o * 1e3:.1f} us)")
 
     # the shape each of phase 7's 2 ranks launches: B=2048 (a profiler
@@ -2593,6 +2681,7 @@ def main() -> int:
     run_half_o = lambda: _fused_observe_cuda(p, st_half)
     ms_half_o = device_ms(run_half_o, 200, kernel="fused_observe_kernel")
     bound_half_o, _ = observe_bound_ms(st_half, run_half_o(), V)
+    window_half_o, _ = observe_window_bound_ms(st_half, V)
     plain_half = cuda_ms(lambda: fused_rollout_reference(
         p, st_half, a_half, False, rows1.grid, rows1.scal), 10)
     plain_half128 = cuda_ms(lambda: fused_rollout_reference(
@@ -2604,8 +2693,10 @@ def main() -> int:
           f"{by_half}, plain {plain_half * 1e3:.1f} us), T=128 "
           f"{ms_half128 * 1e3:.2f} us (bound {bound_half128 * 1e3:.2f} us, "
           f"plain {plain_half128 * 1e3:.1f} us), observe "
-          f"{ms_half_o * 1e3:.2f} us (bound {bound_half_o * 1e3:.2f} us, "
-          f"plain {plain_half_o * 1e3:.1f} us)")
+          f"{ms_half_o * 1e3:.2f} us (window bound "
+          f"{window_half_o * 1e3:.2f} us, whole-grid bound "
+          f"{bound_half_o * 1e3:.2f} us, plain {plain_half_o * 1e3:.1f} "
+          f"us)")
     del st_half, a_half128
 
     # the other families' shapes at B=4096: 25x25, 16x8, see-through,
@@ -2646,6 +2737,11 @@ def main() -> int:
             launch_bytes(s0, s128, r128()), BATCH * 128, sv)
         out["observe_bound_ms"], out["observe_bound_by"] = observe_bound_ms(
             s0, ro(), sv)
+        (out["observe_window_bound_ms"],
+         out["observe_window_bound_by"]) = observe_window_bound_ms(s0, sv)
+        out["observe_floor_ms"] = zero_ms(ro(), 100)
+        out["observe_launch_geometry"] = dataclasses.asdict(
+            observe_launch_geometry(BATCH, sv, sms))
         out["t1_reset_row"] = with_row
         print(f"  {name} ({sp.width}x{sp.height}, see_through_walls="
               f"{sp.see_through_walls}), B={BATCH}, "
@@ -2656,9 +2752,12 @@ def main() -> int:
               f"{out['plain_ms_t1'] * 1e3:.1f} us); T=128 "
               f"{out['ms_t128'] * 1e3:.2f} us (bound "
               f"{out['bound_ms_t128'] * 1e3:.2f} us, plain "
-              f"{out['plain_ms_t128'] * 1e3:.1f} us); observe "
-              f"{out['observe_ms'] * 1e3:.2f} us (bound "
-              f"{out['observe_bound_ms'] * 1e3:.2f} us, plain "
+              f"{out['plain_ms_t128'] * 1e3:.1f} us); observe, G="
+              f"{out['observe_launch_geometry']['group_lanes']} "
+              f"{out['observe_ms'] * 1e3:.2f} us (window bound "
+              f"{out['observe_window_bound_ms'] * 1e3:.2f} us, whole-grid "
+              f"bound {out['observe_bound_ms'] * 1e3:.2f} us, zero_() of "
+              f"its output {out['observe_floor_ms'] * 1e3:.2f} us, plain "
               f"{out['observe_plain_ms'] * 1e3:.1f} us)")
         return out
 
@@ -3068,6 +3167,16 @@ def main() -> int:
                      + sum(v["observe_launches"]
                            for v in vector_runs.values())
                      + sum(n[1] for n in p7_launches))
+
+    def observe_shape(v):
+        return {"ms": v["observe_ms"], "plain_ms": v["observe_plain_ms"],
+                "bound_ms": v["observe_window_bound_ms"],
+                "bound_by": v["observe_window_bound_by"],
+                "grid_bound_ms": v["observe_bound_ms"],
+                "grid_bound_by": v["observe_bound_by"],
+                "floor_ms": v["observe_floor_ms"],
+                "launch_geometry": v["observe_launch_geometry"]}
+
     kernels = [{
         "name": "fused_step",
         "route": "cuda",
@@ -3139,20 +3248,21 @@ def main() -> int:
                          for k, v in bot_runs.items()},
         "launches_demos": demo_launches[1],
         # phase 7: the observe entry at a rank's B=2048
-        "ms_b2048": ms_half_o, "bound_ms_b2048": bound_half_o,
+        "ms_b2048": ms_half_o, "bound_ms_b2048": window_half_o,
+        "grid_bound_ms_b2048": bound_half_o,
         "plain_ms_b2048": plain_half_o,
         "max_abs_err": observe_err,
         "ms": ms_o,
         "plain_ms": plain_ms_o,
-        "bound_ms": bound_o,
-        "bound_by": by_o,
+        # the bound from the bytes these states' windows need; beside it
+        # the bound had the whole grid been read, and the device time of
+        # zero_() on the same output (the launch floor)
+        "bound_ms": window_o,
+        "bound_by": window_by_o,
+        "grid_bound_ms": bound_o,
+        "floor_ms": floor_o,
         "library_ms": None,
-        "shapes": {k: {"ms": v["observe_ms"],
-                       "plain_ms": v["observe_plain_ms"],
-                       "bound_ms": v["observe_bound_ms"],
-                       "bound_by": v["observe_bound_by"],
-                       "launch_geometry": v["launch_geometry"]}
-                   for k, v in shapes.items()},
+        "shapes": {k: observe_shape(v) for k, v in shapes.items()},
     }]
     # the 64-bit-row family (views 33-63): launches on its paths (an env of
     # view 33 pooled, a ViewSizeWrapper of 63), times at DoorKey-8x8 view 33
@@ -3182,15 +3292,12 @@ def main() -> int:
         "max_abs_err": wide_observe_err,
         "ms": dk33["observe_ms"],
         "plain_ms": dk33["observe_plain_ms"],
-        "bound_ms": dk33["observe_bound_ms"],
-        "bound_by": dk33["observe_bound_by"],
+        "bound_ms": dk33["observe_window_bound_ms"],
+        "bound_by": dk33["observe_window_bound_by"],
+        "grid_bound_ms": dk33["observe_bound_ms"],
+        "floor_ms": dk33["observe_floor_ms"],
         "library_ms": None,
-        "shapes": {k: {"ms": v["observe_ms"],
-                       "plain_ms": v["observe_plain_ms"],
-                       "bound_ms": v["observe_bound_ms"],
-                       "bound_by": v["observe_bound_by"],
-                       "launch_geometry": v["launch_geometry"]}
-                   for k, v in wide_shapes.items()},
+        "shapes": {k: observe_shape(v) for k, v in wide_shapes.items()},
     }]
     print(json.dumps({"train_step": {k: {kk: vv for kk, vv in t.items()
                                          if kk != "metrics"}

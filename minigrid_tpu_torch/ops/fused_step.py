@@ -4,7 +4,9 @@ PyTorch version.
 Counterpart of ``minigrid_tpu/ops/fused_step.py``, whose Pallas kernel it
 replaces with ``csrc/fused_step.cu`` (a group of G lanes per env, the env's
 packed grid in shared memory, scalars in registers across the T steps; the
-launch geometry is :func:`launch_geometry`). On the card
+launch geometry is :func:`launch_geometry`; the observe entry reads each
+env's view window from device memory, its geometry is
+:func:`observe_launch_geometry`). On the card
 this is the transition of every env: those without step hooks
 (:func:`require_core_dynamics`) step and take the pooled broadcast row in
 one launch, and a hook env (:func:`has_step_hooks`) runs its hooks in
@@ -66,6 +68,14 @@ RESIDENT_WARPS_PER_SM = 8
 SMEM_LIMIT = 227 * 1024  # shared memory one block may opt into on sm_90
 SMEM_PER_SM = 228 * 1024  # shared memory of an sm_90 SM, of which
 SMEM_PER_BLOCK_RESERVED = 1024  # each resident block holds back 1 KB
+MAX_WARPS_PER_SM, MAX_BLOCKS_PER_SM = 64, 32  # an sm_90 SM's other limits
+# The observe entry takes at least the G that leaves a lane this many view
+# cells of a row: each lane sweeps the rows in series, and its cells of a
+# row set how long each row takes. On an H100 at B=4096, DoorKey-8x8 at view
+# 33 ran 11.96 us at G=8 (5 cells), 9.36 at G=16 (3) and 10.71 at G=32 (2);
+# MultiRoom-N6 at view 63 34.15 us at G=16 (4) and 29.20 at G=32 (2)
+# (port_probes/rollout_profile.py --sweep-only, PERF.md).
+OBSERVE_CELLS_PER_ROW = 3
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_step.cu"
@@ -299,9 +309,11 @@ def pick_group_lanes(batch: int, sm_count: int) -> int:
 
 
 def resident_warps(geo: "LaunchGeometry") -> int:
-    """Warps of the blocks an SM holds at once, as its shared memory
-    allows."""
-    blocks = SMEM_PER_SM // (geo.shared_memory_bytes + SMEM_PER_BLOCK_RESERVED)
+    """Warps of the blocks an SM holds at once, as its shared memory, its
+    warp and its block limits allow (registers aside)."""
+    blocks = min(SMEM_PER_SM // (geo.shared_memory_bytes
+                                 + SMEM_PER_BLOCK_RESERVED),
+                 MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM * 32 // geo.threads)
     return blocks * geo.threads // 32
 
 
@@ -345,6 +357,63 @@ def _geometry(batch, width, height, view_size, g) -> LaunchGeometry:
         raise ValueError(f"a {width}x{height} grid does not fit the kernel's "
                          f"shared memory ({smem} bytes for {envs} envs)")
     return LaunchGeometry(g, envs, envs * g, -(-batch // envs), smem)
+
+
+def observe_shared_memory_bytes(view_size: int, envs_per_block: int) -> int:
+    """Shared memory of one block of the observe entry
+    (csrc/fused_step.cu ``observe_smem_bytes``): the V*V observation words
+    of each env, whatever the grid."""
+    return envs_per_block * view_size ** 2 * 4
+
+
+def observe_launch_geometry(batch: int, view_size: int, sm_count: int,
+                            group_lanes: int | None = None
+                            ) -> LaunchGeometry:
+    """Launch geometry of the observe entry, which stages no grid: G lanes
+    per env (``group_lanes``, or the widest of :func:`pick_group_lanes` and
+    the narrowest G that leaves a lane ``OBSERVE_CELLS_PER_ROW`` view cells
+    of a row), and of the blocks from ``MAX_THREADS // G`` envs down to one
+    warp whose view words fit the shared memory, the largest that lets an
+    SM hold the most warps at once (:func:`resident_warps`). When G is
+    picked, it is widened while one warp of envs does not fit or an SM
+    holds fewer than ``RESIDENT_WARPS_PER_SM`` warps. At B=4096: G=8 at
+    views up to 23, G=16 at 33, G=32 at 63 (2 envs a block). Raises
+    ``ValueError`` for a view size the kernel does not take, or a G of
+    which one warp of envs does not fit (G=1 from a view of 43, G=2 from
+    61)."""
+    check_view_size(view_size)
+    if group_lanes is not None:
+        return _observe_geometry(batch, view_size, group_lanes)
+    narrowest = next(g for g in GROUP_LANES
+                     if g * OBSERVE_CELLS_PER_ROW >= view_size)
+    first = GROUP_LANES.index(max(pick_group_lanes(batch, sm_count),
+                                  narrowest))
+    fits = [g for g in GROUP_LANES[first:]
+            if observe_shared_memory_bytes(view_size, max(1, 32 // g))
+            <= SMEM_LIMIT]
+    geo = _observe_geometry(batch, view_size, fits[0])
+    while (geo.group_lanes < GROUP_LANES[-1]
+           and resident_warps(geo) < RESIDENT_WARPS_PER_SM):
+        geo = _observe_geometry(batch, view_size, 2 * geo.group_lanes)
+    return geo
+
+
+def _observe_geometry(batch, view_size, g) -> LaunchGeometry:
+    if g not in GROUP_LANES:
+        raise ValueError(f"group_lanes must be one of {GROUP_LANES}, got {g}")
+    envs, least = MAX_THREADS // g, max(1, 32 // g)
+    sizes = []
+    while envs >= least:
+        smem = observe_shared_memory_bytes(view_size, envs)
+        if smem <= SMEM_LIMIT:
+            sizes.append(LaunchGeometry(g, envs, envs * g, -(-batch // envs),
+                                        smem))
+        envs //= 2
+    if not sizes:
+        raise ValueError(f"one warp of G={g} envs at a view of {view_size} "
+                         "does not fit the observe entry's shared memory")
+    return max(sizes, key=lambda geo: (resident_warps(geo),
+                                       geo.envs_per_block))
 
 
 _SM_COUNTS: dict[int, int] = {}
@@ -445,7 +514,7 @@ def _fused_observe_cuda(params, states, group_lanes: int | None = None):
         raise ValueError(f"empty launch: B={B}")
     _check_state(states, B, W, H)
     dev = states.grid.device
-    geo = launch_geometry(B, W, H, V, sm_count(dev), group_lanes)
+    geo = observe_launch_geometry(B, V, sm_count(dev), group_lanes)
     obs = torch.empty((B, V, V), dtype=torch.int32, device=dev)
     lib = KERNEL.library()
     code = lib.fused_observe_launch(

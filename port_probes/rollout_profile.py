@@ -14,12 +14,13 @@ T=1 and T=128, with the public and the kernel-native observation layout,
 and pure stepping throughput at B=4096 and B=65536 (device time, one T=128
 launch). Then the sweep: the kernel's device time per launch (profiler) at
 every group width G, at B=4096, 16384 and 65536, T=1 with a reset row and
-T=128, beside the G that ``launch_geometry`` picks; and the same, the
-observe entry too, at shapes whose blocks take most of an SM's shared
-memory: the 64-bit view rows' timed shapes (``chip_smoke.WIDE_SHAPES``:
-DoorKey-8x8 at view 33, MultiRoom-N6's 25x25 at view 63) at B=4096 and
-MultiRoom-N6 at view 7 at B=16384 and 65536, at every G whose block fits.
-``--sweep-only`` runs the sweeps alone.
+T=128, beside the G that ``launch_geometry`` picks; and the same at shapes whose
+blocks take most of an SM's shared memory: the 64-bit view rows' timed
+shapes (``chip_smoke.WIDE_SHAPES``: DoorKey-8x8 at view 33, MultiRoom-N6's
+25x25 at view 63) at B=4096 and MultiRoom-N6 at view 7 at B=16384 and
+65536, at every G whose block fits. Last the observe entry at every G its
+own geometry takes, on ``chip_smoke``'s timed shapes at B=4096 and on
+DoorKey-8x8 at B=2048 and 65536. ``--sweep-only`` runs the sweeps alone.
 ``--train-only``
 profiles only the train step: one step of DoorKey-8x8 at B=4096, T=128,
 bf16 hidden=256, ``PPOConfig()`` per reset mode, with its host time, device
@@ -204,9 +205,9 @@ def sweep_group_lanes(env, g, pool, card: str) -> None:
 
 
 def sweep_big_blocks(card: str) -> None:
-    """Device time per launch at every G that fits, at shapes whose blocks
-    take most of an SM's shared memory: T=1 with a reset row, T=128,
-    observe."""
+    """The step entry's device time per launch at every G that fits, at
+    shapes whose blocks take most of an SM's shared memory: T=1 with a
+    reset row, T=128."""
     import torch
 
     import minigrid_tpu_torch as mt
@@ -239,15 +240,52 @@ def sweep_big_blocks(card: str) -> None:
                 p, stb, a1, False, row.grid, row.scal, G), 50)
             t128 = device_ms(lambda: F._fused_rollout_cuda(
                 p, stb, a128, False, None, None, G), 5)
-            ob = device_ms(lambda: F._fused_observe_cuda(p, stb, G), 50,
-                           kernel="fused_observe_kernel")
             print(f"  {name}, B={batch}: G={G} ({geo.envs_per_block} envs, "
                   f"{geo.threads // 32} warps, {geo.shared_memory_bytes} B a "
                   f"block): T=1 with reset row {t1 * 1e3:.2f}, T=128 "
-                  f"{t128 * 1e3:.2f}, observe {ob * 1e3:.2f}")
+                  f"{t128 * 1e3:.2f}")
         picked = F.launch_geometry(batch, p.width, p.height, view, sms)
         print(f"  {name}, B={batch}: picked G={picked.group_lanes} "
               f"({picked.envs_per_block} envs a block)")
+
+
+def sweep_observe(card: str) -> None:
+    """The observe entry's device time per launch at every G its geometry
+    takes (``observe_launch_geometry``), at B=4096 on the timed shapes of
+    ``chip_smoke`` (8x8, ``SHAPES``, ``WIDE_SHAPES``) and on DoorKey-8x8
+    at a rank's B=2048 and at B=65536, beside the G it picks."""
+    import torch
+
+    import minigrid_tpu_torch as mt
+    from chip_smoke import ENV_ID, SHAPES, WIDE_SHAPES, device_ms
+    from minigrid_tpu_torch.ops import fused_step as F
+
+    sms = F.sm_count(torch.device("cuda"))
+    print(f"observe entry, group-width sweep, device time per launch in us "
+          f"({card}, {sms} SMs):")
+    shapes = [("DoorKey-8x8", ENV_ID, None, b) for b in (4096, 2048, 65536)]
+    shapes += [(name, env_id, None, 4096) for name, env_id, _ in SHAPES]
+    shapes += [(name, env_id, view, 4096)
+               for name, env_id, view in WIDE_SHAPES]
+    for name, env_id, view, batch in shapes:
+        env = mt.make(env_id, device="cuda").packed()
+        if view is not None:
+            env = env.replace_params(view_size=view)
+        p = env.params
+        _, stb = env.reset(env.generator(0), batch)
+        times = []
+        for G in F.GROUP_LANES:
+            try:
+                geo = F.observe_launch_geometry(batch, p.view_size, sms, G)
+            except ValueError:
+                continue
+            ms = device_ms(lambda: F._fused_observe_cuda(p, stb, G), 50,
+                           kernel="fused_observe_kernel")
+            times.append(f"G={G} ({geo.envs_per_block} envs) "
+                         f"{ms * 1e3:.2f}")
+        picked = F.observe_launch_geometry(batch, p.view_size, sms)
+        print(f"  {name}, B={batch}: {', '.join(times)}; picked "
+              f"G={picked.group_lanes} ({picked.envs_per_block} envs)")
 
 
 def main() -> int:
@@ -275,6 +313,7 @@ def main() -> int:
     if args.sweep_only:
         sweep_group_lanes(env, g, pool, card)
         sweep_big_blocks(card)
+        sweep_observe(card)
         return 0
     cases = [("MiniGrid-DoorKey-8x8-v0", mode, None)
              for mode in ("pooled", "fresh", "regen")]
@@ -287,6 +326,7 @@ def main() -> int:
     profile_rollout(env, g, pool, 4096, args.steps, card)
     sweep_group_lanes(env, g, pool, card)
     sweep_big_blocks(card)
+    sweep_observe(card)
     return 0
 
 

@@ -305,6 +305,88 @@ def test_launch_geometry_fills_the_card():
                                                            65536)]
 
 
+# grid sizes of the catalog's families (the step entry's test collects all
+# 178 IDs' sizes), from the smallest to the largest
+CATALOG_GRIDS = [(4, 4), (5, 5), (7, 3), (8, 8), (16, 8), (16, 16),
+                 (22, 22), (25, 25)]
+
+
+@pytest.mark.parametrize("group_lanes", [None, *F.GROUP_LANES])
+def test_observe_geometry_fits_every_grid_and_view(group_lanes):
+    """The observe entry's geometry at every odd view 3..63 and batch:
+    whole warps, at most MAX_THREADS threads, under the shared-memory
+    limit, covering the batch. It takes no grid size (the entry reads each
+    window from device memory), so one geometry serves every catalog grid.
+    An explicit G raises exactly where one warp of its envs' views exceeds
+    the limit (G=1 from a view of 43, G=2 from 61); the picked G always
+    fits, leaves a lane at most OBSERVE_CELLS_PER_ROW cells of a row, and
+    gives an SM RESIDENT_WARPS_PER_SM warps unless it is the widest."""
+    import inspect
+
+    params = inspect.signature(F.observe_launch_geometry).parameters
+    assert not {"width", "height", "num_cells"} & set(params)
+    over = set()
+    for v in range(3, 64, 2):
+        for batch in (1, 1001, 4096, 65536):
+            if group_lanes is not None and F.observe_shared_memory_bytes(
+                    v, 32 // group_lanes) > F.SMEM_LIMIT:
+                over.add(v)
+                with pytest.raises(ValueError, match="shared memory"):
+                    F.observe_launch_geometry(batch, v, 132, group_lanes)
+                continue
+            geo = F.observe_launch_geometry(batch, v, 132, group_lanes)
+            assert geo.shared_memory_bytes <= F.SMEM_LIMIT
+            assert geo.shared_memory_bytes == F.observe_shared_memory_bytes(
+                v, geo.envs_per_block)
+            assert geo.threads == geo.envs_per_block * geo.group_lanes
+            assert geo.threads % 32 == 0 and geo.threads <= F.MAX_THREADS
+            assert geo.blocks * geo.envs_per_block >= batch
+            assert (geo.blocks - 1) * geo.envs_per_block < batch
+            if group_lanes is None:
+                assert -(-v // geo.group_lanes) <= F.OBSERVE_CELLS_PER_ROW
+                assert (F.resident_warps(geo) >= F.RESIDENT_WARPS_PER_SM
+                        or geo.group_lanes == F.GROUP_LANES[-1])
+    first = {1: 43, 2: 61}.get(group_lanes, 65)
+    assert over == set(range(first, 64, 2))
+    with pytest.raises(ValueError, match="view size"):
+        F.observe_launch_geometry(64, 65, 132)
+    with pytest.raises(ValueError, match="group_lanes"):
+        F.observe_launch_geometry(64, 7, 132, 3)
+
+
+@pytest.mark.parametrize("view", [3, 7, 9, 33, 63])
+def test_observe_geometry_fills_the_card(view):
+    """B=4096 (the fresh and regen rollouts' batch) on an H100's 132 SMs:
+    at least MIN_WARPS_PER_SM warps for every SM at every view, all of them
+    resident at once up to view 33. G=8 and 32 envs a block (6,272 B) at
+    view 7; G=16 at view 33; G=32 at view 63, whose views let an SM hold
+    14 of the batch's 31 warps an SM."""
+    geo = F.observe_launch_geometry(4096, view, 132)
+    warps = geo.blocks * geo.threads // 32
+    assert warps / 132 >= F.MIN_WARPS_PER_SM
+    assert (F.resident_warps(geo) * 132 >= warps) == (view <= 33)
+    assert geo == F.observe_launch_geometry(4096, view, 132)
+    want = {3: (8, 32), 7: (8, 32), 9: (8, 32), 33: (16, 16), 63: (32, 2)}
+    assert (geo.group_lanes, geo.envs_per_block) == want[view]
+    if view == 7:
+        assert geo.shared_memory_bytes == 6272
+        # a rank's B=2048 of the multi-device step: G=16
+        assert F.observe_launch_geometry(2048, 7, 132).group_lanes == 16
+
+
+@pytest.mark.parametrize("width,height", CATALOG_GRIDS)
+def test_observe_shared_memory_does_not_grow_with_the_grid(width, height):
+    """The observe entry's block holds only its envs' view words: at view 7
+    and 32 envs 6,272 B on every grid, where the step entry's block, which
+    stages the grids, grows with W*H (186,624 B at 25x25)."""
+    nc = width * height
+    assert F.observe_shared_memory_bytes(7, 32) == 32 * 49 * 4 == 6272
+    step = F.shared_memory_bytes(nc, 7, 32)
+    assert step > F.observe_shared_memory_bytes(7, 32) + 5 * nc * 32
+    if (width, height) == (25, 25):
+        assert step == 186624
+
+
 def test_require_core_dynamics_rejects_hooked_envs():
     class Hooked(MiniGridEnv):
         def _post_step(self, prev, state, action, reward, terminated):

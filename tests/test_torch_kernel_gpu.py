@@ -206,20 +206,34 @@ def test_observe_entry_matches_plain_on_card(cuda_device, view, B,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("env_id", ["MiniGrid-MultiRoom-N6-v0",
-                                    "MiniGrid-RedBlueDoors-8x8-v0",
-                                    "MiniGrid-GoToDoor-8x8-v0",
-                                    "BabyAI-BossLevel-v0",
-                                    "MiniGrid-ObstructedMaze-Full-v0"])
-def test_observe_entry_other_shapes_on_card(cuda_device, env_id):
+@pytest.mark.parametrize("env_id,view", [
+    ("MiniGrid-MultiRoom-N6-v0", None),
+    ("MiniGrid-RedBlueDoors-8x8-v0", None),
+    ("MiniGrid-GoToDoor-8x8-v0", None),
+    ("BabyAI-BossLevel-v0", None),
+    ("MiniGrid-ObstructedMaze-Full-v0", None),
+    ("MiniGrid-DoorKey-5x5-v0", None),
+    ("MiniGrid-WFC-MazeSimple-v0", None),
+    ("MiniGrid-DoorKey-8x8-v0", 33),
+    ("MiniGrid-MultiRoom-N6-v0", 63),
+])
+def test_observe_entry_other_shapes_on_card(cuda_device, env_id, view):
+    """The observe entry, which reads each env's window from device
+    memory, on the grids of other shapes (25x25, 16x8, 22x22, 16x16, 5x5)
+    and at views of 33 and 63: one launch a call, bit-exact."""
     env = minigrid_tpu_torch.make(env_id, device=cuda_device).packed()
+    if view is not None:
+        env = env.replace_params(view_size=view)
     _, st = env.reset(env.generator(3), 2048)
     rng = np.random.default_rng(4)
     actions = torch.from_numpy(INTERACT[rng.integers(0, 8, (16, 2048))]).to(
         cuda_device)
     st = fused_rollout(env.params, st, actions)[0]
-    assert torch.equal(fused_observe(env.params, st),
-                       fused_observe_reference(env.params, st))
+    launches = KERNEL.observe_launches
+    got = fused_observe(env.params, st)
+    torch.cuda.synchronize()
+    assert KERNEL.observe_launches == launches + 1
+    assert torch.equal(got, fused_observe_reference(env.params, st))
 
 
 # BabyAI levels: every leaf and root kind, the 22x22 maze
