@@ -196,7 +196,12 @@ SHAPES = [("MultiRoom-N6 25x25", "MiniGrid-MultiRoom-N6-v0", True),
           ("BossLevel 22x22", "BabyAI-BossLevel-v0", False),
           ("ObstructedMaze-Full 16x16", "MiniGrid-ObstructedMaze-Full-v0",
            False),
-          ("WFC-MazeSimple 25x25", "MiniGrid-WFC-MazeSimple-v0", True)]
+          ("WFC-MazeSimple 25x25", "MiniGrid-WFC-MazeSimple-v0", True),
+          # grids of W*H*5 bytes that are no multiple of 16: JAX bench.py's
+          # FourRooms and LavaCrossingS9N2, the learning guard's Empty-5x5
+          ("FourRooms 19x19", "MiniGrid-FourRooms-v0", True),
+          ("LavaCrossingS9N2 9x9", "MiniGrid-LavaCrossingS9N2-v0", True),
+          ("Empty-5x5", "MiniGrid-Empty-5x5-v0", True)]
 # generation on the card at full width: seconds per batch, host syncs, the
 # most attempts (levels) or connect_all draws any env used, levels not valid
 GENERATION = ["BabyAI-BossLevel-v0", "MiniGrid-KeyCorridorS6R3-v0"]
@@ -1708,15 +1713,20 @@ def main() -> int:
 
     # --- 2. kernel against plain version -------------------------------
     def check(name, env_id, B, T, hint=None, reset=False, native=False,
-              view=None, group_lanes=None):
+              view=None, group_lanes=None, skip=0):
+        # skip: the state is the contiguous view of envs skip.. of a batch
+        # of B + skip, whose grid starts off a 16-byte boundary
         env = mt.make(env_id, device="cuda").packed()
         if view is not None:
             env = env.replace_params(view_size=view)
         g = env.generator(SEED + 1)
         if reset:
-            _, st = env.reset_staggered(g, B)
+            _, st = env.reset_staggered(g, B + skip)
         else:
-            _, st = env.reset(g, B)
+            _, st = env.reset(g, B + skip)
+        if skip:
+            st = st.map(lambda t: t[skip:])
+            assert st.grid.is_contiguous() and st.grid.data_ptr() % 16, name
         if hint == "interact":
             choice = torch.tensor([0, 1, 2, 2, 3, 4, 5, 5], device="cuda")
             actions = choice[torch.randint(0, 8, (T, B), generator=g,
@@ -1759,6 +1769,31 @@ def main() -> int:
         errs.append(check(f"DoorKey-8x8 G={G} B=1001 T=16 reset-row entry",
                           ENV_ID, 1001, 16, hint="interact", reset=True,
                           group_lanes=G))
+    # the step entry's state copy, a block's run of grids in and out by one
+    # bulk copy each way: grids of W*H*5 bytes that are no multiple of 16
+    # (25x25, 22x22, 19x19, 9x9), a ragged last block, and grid inputs
+    # that start off a 16-byte boundary (the output's offsets then differ)
+    multiroom, bosslevel = "MiniGrid-MultiRoom-N6-v0", "BabyAI-BossLevel-v0"
+    errs += [
+        check("MultiRoom-N6 25x25 B=4096 T=32 reset-row entry", multiroom,
+              BATCH, 32, hint="interact", reset=True),
+        check("BossLevel 22x22 B=4096 T=32", bosslevel, BATCH, 32,
+              hint="interact"),
+        check("FourRooms 19x19 B=4096 T=32 reset-row entry",
+              "MiniGrid-FourRooms-v0", BATCH, 32, hint="interact",
+              reset=True),
+        check("LavaCrossingS9N2 9x9 B=4096 T=32 reset-row entry", LAVA_ID,
+              BATCH, 32, hint="interact", reset=True),
+        check("MultiRoom-N6 25x25 ragged B=1001 T=32 reset-row entry",
+              multiroom, 1001, 32, hint="interact", reset=True),
+        check("MultiRoom-N6 25x25 unaligned grid B=1001 T=32 reset-row "
+              "entry", multiroom, 1001, 32, hint="interact", reset=True,
+              skip=1),
+        check("BossLevel 22x22 unaligned grid B=4096 T=16", bosslevel,
+              BATCH, 16, hint="interact", skip=1),
+        check("LavaCrossingS9N2 9x9 unaligned grid B=1001 T=16 reset-row "
+              "entry", LAVA_ID, 1001, 16, reset=True, skip=3),
+    ]
 
     # the observe entry against plain gen_obs, on states after 16
     # interaction steps (doors opened, keys carried)
@@ -1852,7 +1887,13 @@ def main() -> int:
     # on DoorKey-8x8 and MultiRoom-N6's 25x25, B=1024, at the picked G (the
     # step entry with a reset row, T=32) and at every other G that fits
     # (T=8)
-    wide_errs, wide_observe_errs = [], []
+    # 25x25 at view 63 takes G=32, 8 envs a block: a 25,000-byte run, no
+    # multiple of 16, and a ragged last block of 5 envs
+    wide_errs = [check("MultiRoom-N6 25x25 view 63 G=32 B=4093 T=8 "
+                       "reset-row entry", "MiniGrid-MultiRoom-N6-v0", 4093,
+                       8, hint="interact", reset=True, view=63,
+                       group_lanes=32)]
+    wide_observe_errs = []
     for env_id in (ENV_ID, "MiniGrid-MultiRoom-N6-v0"):
         wp = mt.make(env_id, device="cpu").params
         for view in WIDE_VIEWS:
@@ -2636,9 +2677,11 @@ def main() -> int:
           f"{ms1 * 1e3:.2f} us (bound {bound1 * 1e3:.2f} us by {by1}, "
           f"plain version {plain_ms1 * 1e3:.1f} us; {call_ms1 * 1e3:.1f} "
           f"us per call back to back, host-bound)")
+    loop1 = (ms128 - ms1) / 127
     print(f"  B={BATCH} T=128 pure, G={groups[f't128_b{BATCH}']}: "
           f"{ms128 * 1e3:.2f} us (bound {bound128 * 1e3:.2f} us by "
-          f"{by128}, plain version {plain_ms128 * 1e3:.1f} us)")
+          f"{by128}, plain version {plain_ms128 * 1e3:.1f} us); loop "
+          f"{loop1 * 1e3:.3f} us a step ((T=128 - T=1) / 127)")
     print(f"  B={big} T=128 pure, G={groups[f't128_b{big}']}: "
           f"{ms_big * 1e3:.2f} us (bound {bound_big * 1e3:.2f} us by "
           f"{by_big}, plain version {plain_ms_big * 1e3:.1f} us)")
@@ -2735,6 +2778,9 @@ def main() -> int:
             launch_bytes(s0, s1, r1(), rg, rsc), BATCH, sv)
         out["bound_ms_t128"], out["bound_by_t128"] = bound_ms(
             launch_bytes(s0, s128, r128()), BATCH * 128, sv)
+        # what one more step of the loop costs, apart from the launch and
+        # the state copy in and out
+        out["loop_ms_per_step"] = (out["ms_t128"] - out["ms_t1"]) / 127
         out["observe_bound_ms"], out["observe_bound_by"] = observe_bound_ms(
             s0, ro(), sv)
         (out["observe_window_bound_ms"],
@@ -2752,7 +2798,9 @@ def main() -> int:
               f"{out['plain_ms_t1'] * 1e3:.1f} us); T=128 "
               f"{out['ms_t128'] * 1e3:.2f} us (bound "
               f"{out['bound_ms_t128'] * 1e3:.2f} us, plain "
-              f"{out['plain_ms_t128'] * 1e3:.1f} us); observe, G="
+              f"{out['plain_ms_t128'] * 1e3:.1f} us); loop "
+              f"{out['loop_ms_per_step'] * 1e3:.3f} us a step "
+              f"((T=128 - T=1) / 127); observe, G="
               f"{out['observe_launch_geometry']['group_lanes']} "
               f"{out['observe_ms'] * 1e3:.2f} us (window bound "
               f"{out['observe_window_bound_ms'] * 1e3:.2f} us, whole-grid "
@@ -3222,6 +3270,7 @@ def main() -> int:
         "ms_t128": ms128,
         "plain_ms_t128": plain_ms128,
         "bound_ms_t128": bound128,
+        "loop_ms_per_step": loop1,
         "ms_t128_b65536": ms_big,
         "bound_ms_t128_b65536": bound_big,
         "plain_ms_t128_b65536": plain_ms_big,

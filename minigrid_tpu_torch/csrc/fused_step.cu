@@ -24,30 +24,28 @@
 // cells).
 //
 // Design: a group of G lanes per env (G = 1, 2, 4, 8, 16 or 32, a template
-// parameter that the wrapper picks per launch from B and the SM count:
-// enough lanes per env that a small batch still gives every SM's four
-// schedulers a warp each, and no more, since the serial work below is
-// repeated on each of an env's lanes), at most 256 threads per block. Work
-// that is parallel across cells is spread over the group's lanes: the grid
-// copy in and out (16-byte vectors where aligned), the cell packing, the
-// reset-row copy and the window reads. The view is swept row by row from the
-// agent's row up: for row j, lane k reads view cells (k, j), (k+G, j), ...,
-// one ballot per G cells gives the row's transparency mask, every lane of
-// the group runs the row's flood on it (uniform values, no broadcast), and
-// the row's observation words follow at once from the row's visibility, so
-// each window cell is read once. The flood and the overlay of a row are one
-// device function, view_row, that both kernels call; each reads the cells
-// its own way. The flood is the two-pass sweep of core/visibility.py on a
-// row packed into one 32- or 64-bit mask, each pass one integer add (a carry
-// runs through a run of transparent cells; the descending pass works on the
-// bit-reversed row). The loop has no branches, so the compiler issues the
-// rows' reads ahead of their floods (the step entry keeps its gather inline
-// for that: through a generic row loop its 64-bit rows ran 5% slower). The
-// scalar transition also runs on every lane of the group, and one lane
-// writes the front cell. The observation words go to shared memory, and the
-// warp then writes its envs' words for the step as one contiguous run (full
-// 32-byte sectors; scattered 4-byte stores were the first design's
-// bottleneck at large B). Nothing synchronises beyond the warp.
+// parameter that the wrapper picks per launch from B and the SM count: enough
+// lanes per env that a small batch still gives every SM's four schedulers a
+// warp each, and no more, since the serial work below is repeated on each of an
+// env's lanes), at most 256 threads per block. Work that is parallel across
+// cells is spread over the group's lanes: the cell packing, the reset-row copy
+// and the window reads. The view is swept row by row from the agent's row up:
+// for row j, lane k reads view cells (k, j), (k+G, j), ..., one ballot per G
+// cells gives the row's transparency mask, every lane of the group runs the
+// row's flood on it (uniform values, no broadcast), and the row's observation
+// words follow at once from the row's visibility, so each window cell is read
+// once. The flood and the overlay of a row are one device function, view_row,
+// that both kernels call; each reads the cells its own way. The flood is the
+// two-pass sweep of core/visibility.py on a row packed into one 32- or 64-bit
+// mask, each pass one integer add (a carry runs through a run of transparent
+// cells; the descending pass works on the bit-reversed row). The loop has no
+// branches, so the compiler issues the rows' reads ahead of their floods (the
+// step entry keeps its gather inline for that: through a generic row loop its
+// 64-bit rows ran 5% slower). The scalar transition also runs on every lane of
+// the group, and one lane writes the front cell. The observation words go to
+// shared memory, and the warp then writes its envs' words for the step as one
+// contiguous run (full 32-byte sectors; scattered 4-byte stores were the first
+// design's bottleneck at large B). Nothing synchronises beyond the warp.
 //
 // Shared memory per env of the step entries: the packed cells (int32, an
 // odd row length, so 32 lanes reading the same cell of 32 envs hit 32
@@ -55,10 +53,36 @@
 // of the current step, and the env's grid bytes as (W, H, 5) uint8. The
 // bytes are copied in once, packed by the group, and kept equal to the
 // packed cells by every write (the front cell, a reset row), so the state
-// goes back out as a straight vector copy with no unpacking: a step writes
-// at most one cell or one reset row. The scalars stay in registers across
-// the T steps, and each step's actions come G steps at a time, one per
-// lane, a chunk ahead, and are shuffled to the group.
+// goes back out with no unpacking: a step writes at most one cell or one
+// reset row. The scalars stay in registers across the T steps, and each
+// step's actions come G steps at a time, one per lane, a chunk ahead, and
+// are shuffled to the group.
+//
+// The state copy. Each group once copied its env's grid itself, by 16-byte
+// vectors where the grid's size (W*H*5) and both pointers were multiples of
+// 16 and byte by byte otherwise: on 124 of the 178 IDs (5x5, 9x9, 19x19,
+// 22x22, 25x25, ...) a lane issued hundreds of dependent byte loads, then as
+// many stores (~390 each at 25x25, G=8), with one block an SM to hide them:
+// 38-47 us of a T=1 launch at 22x22 and 25x25. What bounds the copy is the
+// run's bytes, in and out: the grids of a block's envs lie back to back in
+// device memory (the wrapper requires contiguous tensors), one run of envs
+// x W*H*5 bytes from grid + b0*W*H*5. So the block stages the run as it
+// lies, unpadded, at a shared address equal to its device address modulo
+// 16, and moves it as Hopper moves bulk data, a warp at a time: the envs of
+// a warp are a contiguous part of the run, and lane 0 issues one TMA bulk
+// copy (cp.async.bulk) of that part's 16-byte aligned middle on the warp's
+// mbarrier, which expects its bytes, the first lanes copy the edges (at
+// most 15 bytes at each end), and the warp waits on the barrier. After the
+// T steps every lane fences its shared writes for the async proxy, and lane
+// 0 issues the bulk copy out, waiting until it has read the shared memory
+// before the warp exits. An output whose offset modulo 16 differs from the
+// input's (an input that does not start on a 16-byte boundary) goes out as
+// whole aligned 16-byte words that each lane shifts together from shared
+// words instead. One copy for the whole block, with the block synchronised
+// at entry and exit, was as fast on the large grids but 14-18% slower than
+// the per-env vectors at a T=1 launch on 16x8 and 16x16 and 3% slower a
+// step of the loop (port_probes/kernel_times.py, PERF.md): the warps of a
+// block stay apart in time when each waits only for its own envs.
 //
 // Bound of the step entries: bytes. Per step launch it reads the state
 // (B * (W*H*5 + 21) bytes) and writes it back with its two flags
@@ -141,7 +165,6 @@ struct Args {
   uint8_t* trunc_out;        // (B,)
   int B, T, W, H, V, max_steps, see_through, native_layout;
   int G, envs;  // lanes per env, envs per block
-  bool vec16;   // the grid copy goes by 16-byte vectors (else by bytes)
 };
 
 struct ObserveArgs {
@@ -154,19 +177,24 @@ struct ObserveArgs {
   int G, envs;  // lanes per env, envs per block
 };
 
-// Shared memory of a block of `envs` envs of the step entries, in 32-bit
-// words from the start (mirrored by ops/fused_step.py::shared_memory_bytes):
-// the packed cells, envs x (NC | 1); the observation words of the current
-// step, envs x V*V; then, 16-byte aligned, the grid bytes, envs x (5 NC
-// rounded up to 16 bytes).
+// Shared memory of a block of `envs` envs of the step entries, from the
+// start (mirrored by ops/fused_step.py::shared_memory_bytes): the packed
+// cells, envs x (NC | 1) words; the observation words of the current step,
+// envs x V*V; then, 16-byte aligned, the mbarriers of the state copy (one
+// a warp) and the staging of the block's run of grids, envs x 5 NC bytes as
+// they lie in device memory, unpadded, placed up to 15 bytes in so that its
+// shared and device addresses agree modulo 16, and read up to one word past
+// its end by a shifted copy out (kRunSlack).
+constexpr int kBarrierBytes = 8 * (kMaxThreads / 32);
+constexpr int kRunSlack = 15 + 4;
 struct Layout {
-  int ncp, sb, obs_off, stage_off, bytes;
+  int ncp, obs_off, bar_off, stage_off, bytes;  // obs_off in words
   __host__ __device__ Layout(int nc, int v, int envs)
       : ncp(nc | 1),
-        sb((5 * nc + 15) & ~15),
         obs_off(envs * ncp),
-        stage_off((obs_off + envs * v * v + 3) & ~3),
-        bytes(stage_off * 4 + envs * sb) {}
+        bar_off(((obs_off + envs * v * v + 3) & ~3) * 4),
+        stage_off(bar_off + kBarrierBytes),
+        bytes(stage_off + ((envs * 5 * nc + kRunSlack + 15) & ~15)) {}
 };
 
 // Shared memory of a block of the observe entry: the envs' observation
@@ -198,23 +226,121 @@ __device__ __forceinline__ void unpack5(int p, uint8_t* c) {
   c[4] = (p >> 13) & 7;
 }
 
-// n words from src to dst, word i by lane i % G of the group
-template <int G, typename Word>
-__device__ __forceinline__ void copy_words(Word* __restrict__ dst,
-                                           const Word* __restrict__ src,
-                                           int n, int lg) {
-#pragma unroll 4
-  for (int i = lg; i < n; i += G) dst[i] = src[i];
+// The state copy of the step entries: a warp's run of grids moved between
+// device memory and its staging in shared memory by the Tensor Memory
+// Accelerator (TMA), one bulk copy each way for the run's 16-byte aligned
+// middle, the edges (at most 15 bytes at each end) by plain loads and
+// stores of the first lanes. Each is called by every lane of the warp.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <int G>
-__device__ __forceinline__ void copy_grid(uint8_t* dst, const uint8_t* src,
-                                          int nbytes, bool vec16, int lg) {
-  if (vec16)
-    copy_words<G>(reinterpret_cast<uint4*>(dst),
-                  reinterpret_cast<const uint4*>(src), nbytes / 16, lg);
-  else
-    copy_words<G>(dst, src, nbytes, lg);
+// Where a run of n bytes starting at p splits: head bytes up to the first
+// 16-byte boundary, then mid bytes of whole 16-byte words, then the tail.
+struct RunSplit {
+  int head, mid, tail;
+  __device__ __forceinline__ RunSplit(const void* p, int n) {
+    head = min(n, int(-reinterpret_cast<uintptr_t>(p) & 15));
+    mid = (n - head) & ~15;
+    tail = n - head - mid;
+  }
+};
+
+// Byte i < head of the run by lane i, byte head + mid + i < n by lane
+// 16 + i.
+__device__ __forceinline__ void copy_edges(uint8_t* dst, const uint8_t* src,
+                                           RunSplit r) {
+  const int t = threadIdx.x & 31;
+  if (t < r.head) dst[t] = src[t];
+  else if (t >= 16 && t - 16 < r.tail) {
+    const int i = r.head + r.mid + t - 16;
+    dst[i] = src[i];
+  }
+}
+
+// The run of n bytes at src (device memory) into dst (shared memory, dst
+// and src equal modulo 16): lane 0 initialises the warp's barrier and
+// issues the bulk copy of the middle, whose bytes the barrier expects;
+// every lane waits for it. Ends with the run in place for every lane.
+__device__ __forceinline__ void stage_in(uint8_t* dst, const uint8_t* src,
+                                         int n, uint64_t* bar) {
+  const RunSplit r(src, n);
+  const unsigned b = shared_addr(bar);
+  if ((threadIdx.x & 31) == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b)
+                 : "memory");
+    // the barrier's initialisation before the async proxy's first use
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (r.mid > 0) {
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+          "r"(r.mid)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];" ::"r"(shared_addr(dst + r.head)),
+          "l"(src + r.head), "r"(r.mid), "r"(b)
+          : "memory");
+    }
+  }
+  copy_edges(dst, src, r);
+  __syncwarp();  // the barrier initialised, the edges written
+  if (r.mid > 0) {
+    unsigned done = 0;
+    while (!done) {
+      asm volatile(
+          "{ .reg .pred p;\n"
+          "  mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          "  selp.u32 %0, 1, 0, p; }"
+          : "=r"(done)
+          : "r"(b)
+          : "memory");
+    }
+  }
+}
+
+// The run of n bytes at src (shared memory) out to dst (device memory),
+// after every lane's last write to it. Where the two agree modulo 16 (the
+// run came in by stage_in and goes out at the same offset modulo 16: any
+// input that starts on a 16-byte boundary) lane 0 issues the bulk copy of
+// the middle and waits until it has read the shared memory, before the
+// warp exits; otherwise each lane stores whole aligned 16-byte words of the
+// middle, each built from the five 32-bit shared words that hold its bytes.
+__device__ __forceinline__ void stage_out(uint8_t* dst, const uint8_t* src,
+                                          int n) {
+  const RunSplit r(dst, n);
+  // this lane's writes to the run, before the async proxy reads it
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncwarp();
+  const int lane = threadIdx.x & 31;
+  const unsigned s = shared_addr(src + r.head);  // dst + r.head is aligned
+  if ((s & 15) == 0) {
+    if (lane == 0 && r.mid > 0) {
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+              dst + r.head),
+          "r"(s), "r"(r.mid)
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    copy_edges(dst, src, r);
+    if (lane == 0 && r.mid > 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  } else {
+    const unsigned* w =
+        reinterpret_cast<const unsigned*>(src + r.head - (s & 3));
+    const unsigned shift = (s & 3) * 8;
+    uint4* out = reinterpret_cast<uint4*>(dst + r.head);
+    for (int k = lane; k < r.mid / 16; k += 32) {
+      const unsigned* q = w + 4 * k;
+      out[k] = make_uint4(__funnelshift_r(q[0], q[1], shift),
+                          __funnelshift_r(q[1], q[2], shift),
+                          __funnelshift_r(q[2], q[3], shift),
+                          __funnelshift_r(q[3], q[4], shift));
+    }
+    copy_edges(dst, src, r);
+  }
 }
 
 // The group's G predicates as bits 0..G-1 (bit k from the group's lane k).
@@ -374,7 +500,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
   const int base = (threadIdx.x & 31) & ~(G - 1);  // group's first warp lane
   const int slot = threadIdx.x / G;              // env within the block
   const long long B = a.B;
-  const long long b = (long long)blockIdx.x * a.envs + slot;
+  const long long b0 = (long long)blockIdx.x * a.envs;  // block's first env
+  const long long b = b0 + slot;
   // Lanes of envs past B (the ragged last block) run every step on a
   // dummy state, for the warp collectives, and touch no device memory.
   const bool active = b < B;
@@ -385,22 +512,31 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
   const int warp_slot = (threadIdx.x & ~31) / G;  // first env of the warp
   int32_t* warp_obs = smem + L.obs_off + warp_slot * VV;
   int32_t* my_obs = smem + L.obs_off + slot * VV;
-  const long long warp_b = (long long)blockIdx.x * a.envs + warp_slot;
+  const long long warp_b = b0 + warp_slot;
   const int warp_words = warp_view_words<G>(B, warp_b, VV);
-  uint8_t* bytes =
-      reinterpret_cast<uint8_t*>(smem + L.stage_off) + slot * L.sb;
+  // The grids of the block's envs below B lie back to back in device
+  // memory, from grid_in + b0 * RB: staged as they lie, at the run's offset
+  // modulo 16, each warp copies its own envs' part of that run.
+  const int run = (int)(B - b0 < a.envs ? B - b0 : a.envs) * RB;
+  const int w0 = min(run, warp_slot * RB);
+  const int w1 = min(run, w0 + 32 / G * RB);
+  uint8_t* smem_bytes = reinterpret_cast<uint8_t*>(smem_raw);
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(smem_bytes + L.bar_off) + threadIdx.x / 32;
+  uint8_t* stage = smem_bytes + L.stage_off +
+                   (reinterpret_cast<uintptr_t>(a.grid_in + b0 * RB) & 15);
+  uint8_t* bytes = stage + slot * RB;
 
   // --- state in ----------------------------------------------------------
   int x = 0, y = 0, d = 0, carry = kEmpty, sc = 0, te = 0, tr = 0;
   if (active) {
-    copy_grid<G>(bytes, a.grid_in + b * RB, RB, a.vec16, lg);
     x = a.pos_in[2 * b];
     y = a.pos_in[2 * b + 1];
     d = a.dir_in[b];
     carry = pack5(a.carry_in + 5 * b);
     sc = a.step_in[b];
   }
-  __syncwarp();
+  stage_in(stage + w0, a.grid_in + b0 * RB + w0, w1 - w0, bar);
   for (int c = lg; c < NC; c += G) g[c] = with_clear(pack5(bytes + 5 * c));
   __syncwarp();
 
@@ -534,18 +670,15 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(Args a) {
   }
 
   // --- state out: the grid bytes were kept current -----------------------
-  __syncwarp();
-  if (active) {
-    copy_grid<G>(a.grid_out + b * RB, bytes, RB, a.vec16, lg);
-    if (lg == 0) {
-      a.pos_out[2 * b] = x;
-      a.pos_out[2 * b + 1] = y;
-      a.dir_out[b] = d;
-      unpack5(carry, a.carry_out + 5 * b);
-      a.step_out[b] = sc;
-      a.term_out[b] = te;
-      a.trunc_out[b] = tr;
-    }
+  stage_out(a.grid_out + b0 * RB + w0, stage + w0, w1 - w0);
+  if (active && lg == 0) {
+    a.pos_out[2 * b] = x;
+    a.pos_out[2 * b + 1] = y;
+    a.dir_out[b] = d;
+    unpack5(carry, a.carry_out + 5 * b);
+    a.step_out[b] = sc;
+    a.term_out[b] = te;
+    a.trunc_out[b] = tr;
   }
 }
 
@@ -754,10 +887,6 @@ int fused_step_launch(
   a.max_steps = max_steps;
   a.see_through = see_through; a.native_layout = native_layout;
   a.G = group_lanes; a.envs = envs_per_block;
-  const int rb = W * H * 5;
-  const uintptr_t align = reinterpret_cast<uintptr_t>(grid_in) |
-                          reinterpret_cast<uintptr_t>(grid_out);
-  a.vec16 = rb % 16 == 0 && align % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return a.reset_grid != nullptr
              ? dispatch(StepLaunch<true>{a, s}, group_lanes, view_size)

@@ -280,14 +280,24 @@ def check_view_size(view_size: int) -> None:
                          f"{MAX_VIEW}, got {view_size}")
 
 
+# the step entry's shared memory beyond its words (csrc/fused_step.cu
+# ``Layout``): the state copy's mbarriers (8 bytes for each of a block's at
+# most 8 warps), and the staged run's slack of up to 15 bytes before it (its
+# offset modulo 16) and one word after it
+BARRIER_BYTES, RUN_SLACK = 8 * (MAX_THREADS // 32), 15 + 4
+
+
 def shared_memory_bytes(num_cells: int, view_size: int,
                         envs_per_block: int) -> int:
     """Shared memory of one block (csrc/fused_step.cu ``Layout``): per env
     the packed cells (an odd word count) and the V*V observation words of
-    a step and, from a 16-byte boundary, the grid bytes rounded up to 16."""
+    a step; then, from a 16-byte boundary, the state copy's barriers and the
+    block's run of grids as it lies in device memory, unpadded, with its
+    slack, rounded up to 16 bytes."""
     words = envs_per_block * ((num_cells | 1) + view_size ** 2)
-    return (words + 3) // 4 * 16 + envs_per_block * (
-        (5 * num_cells + 15) // 16 * 16)
+    run = envs_per_block * 5 * num_cells
+    return ((words + 3) // 4 * 16 + BARRIER_BYTES
+            + (run + RUN_SLACK + 15) // 16 * 16)
 
 
 @dataclasses.dataclass(frozen=True)

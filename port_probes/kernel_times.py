@@ -3,8 +3,11 @@
 ``PERF.md`` §6 tracks, as one JSON line: the step entry at T=1 (with the
 reset row where the family's pooled step takes one) and T=128, and the
 observe entry, at B=4096 on DoorKey-8x8 and on ``chip_smoke``'s timed
-shapes (``SHAPES``, ``WIDE_SHAPES``), DoorKey-8x8 also at B=2048 and, T=128
-only, B=65536.
+shapes (``SHAPES``, ``WIDE_SHAPES``) and at ``BYTE_PATH_SHAPES`` (grids of
+W*H*5 bytes that are no multiple of 16, added here too so that a copy run
+in an older checkout times them), DoorKey-8x8 also at B=2048 and, T=128
+only, B=65536. Each step-entry shape also gets the loop's cost a step,
+(T=128 - T=1) / 127.
 
     python3 port_probes/kernel_times.py
 
@@ -24,6 +27,11 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+BYTE_PATH_SHAPES = [("FourRooms 19x19", "MiniGrid-FourRooms-v0", True),
+                    ("LavaCrossingS9N2 9x9", "MiniGrid-LavaCrossingS9N2-v0",
+                     True),
+                    ("Empty-5x5", "MiniGrid-Empty-5x5-v0", True)]
+
 
 def main() -> int:
     import torch
@@ -42,7 +50,8 @@ def main() -> int:
     cases = [("DoorKey-8x8", ENV_ID, True, None, 4096),
              ("DoorKey-8x8 B=2048", ENV_ID, True, None, 2048)]
     cases += [(name, env_id, row, None, 4096)
-              for name, env_id, row in SHAPES]
+              for name, env_id, row in SHAPES + [
+                  s for s in BYTE_PATH_SHAPES if s not in SHAPES]]
     cases += [(name, env_id, True, view, 4096)
               for name, env_id, view in WIDE_SHAPES]
     times = {}
@@ -65,6 +74,8 @@ def main() -> int:
                 p, st, a128, False, None, None), 10),
             "observe_us": 1e3 * device_ms(lambda: F._fused_observe_cuda(
                 p, st), 100, kernel="fused_observe_kernel")}
+        times[name]["loop_us"] = (times[name]["t128_us"]
+                                  - times[name]["t1_us"]) / 127
     env = mt.make(ENV_ID, device="cuda").packed()
     g = env.generator(9)
     _, st = env.reset(g, 65536)

@@ -9,6 +9,7 @@ The CUDA kernel itself runs only on the card
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -186,10 +187,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_shared_memory_and_build_flags():
     # per env: the packed cells (an odd word count) and the V*V observation
-    # words, then from a 16-byte boundary the grid bytes rounded up to 16
-    assert F.shared_memory_bytes(64, 7, 16) == 16 * (65 + 49) * 4 + 16 * 320
-    assert F.shared_memory_bytes(25, 7, 32) == 32 * (25 + 49) * 4 + 32 * 128
-    assert F.shared_memory_bytes(25, 9, 1) == 108 * 4 + 128  # 106 words
+    # words; then from a 16-byte boundary the 8 warps' 8-byte barriers and
+    # the block's run of grids, unpadded, with 19 bytes of slack rounded up
+    # to 16
+    assert F.shared_memory_bytes(64, 7, 16) == (16 * (65 + 49) * 4 + 64
+                                                + 16 * 320 + 32)
+    assert F.shared_memory_bytes(25, 7, 32) == (32 * (25 + 49) * 4 + 64
+                                                + 32 * 125 + 32)
+    assert F.shared_memory_bytes(25, 9, 1) == 108 * 4 + 64 + 144  # 106 words
     # a 32x32 grid fits a block of 8 envs at G=32, not the 32 envs of a
     # one-lane warp
     assert F.launch_geometry(64, 32, 32, 7, 132, 32).envs_per_block == 8
@@ -378,13 +383,50 @@ def test_observe_geometry_fills_the_card(view):
 def test_observe_shared_memory_does_not_grow_with_the_grid(width, height):
     """The observe entry's block holds only its envs' view words: at view 7
     and 32 envs 6,272 B on every grid, where the step entry's block, which
-    stages the grids, grows with W*H (186,624 B at 25x25)."""
+    stages the grids, grows with W*H (186,368 B at 25x25)."""
     nc = width * height
     assert F.observe_shared_memory_bytes(7, 32) == 32 * 49 * 4 == 6272
     step = F.shared_memory_bytes(nc, 7, 32)
     assert step > F.observe_shared_memory_bytes(7, 32) + 5 * nc * 32
     if (width, height) == (25, 25):
-        assert step == 186624
+        assert step == 186368
+
+
+@functools.cache
+def registered_grids() -> tuple:
+    """The (width, height) of every registered ID."""
+    return tuple(sorted({(p.width, p.height) for p in (
+        minigrid_tpu_torch.make(env_id, device=CPU).params
+        for env_id in minigrid_tpu_torch.registered_ids())}))
+
+
+@pytest.mark.parametrize("view", [3, 7, 9, 33, 63])
+def test_step_entry_stages_the_run_unpadded(view):
+    """The step entry's block stages its envs' grids as one run, as they lie
+    in device memory: past the packed cells and the view words its shared
+    memory is the run's envs x W*H*5 bytes, the warps' barriers (64) and
+    at most the slack the bulk copies need (15 bytes to match the run's
+    offset modulo 16, one word after it, rounded up to 16), never a padded
+    grid an env. At 25x25, view 7, 32 envs that is 186,368 B, under the
+    186,624 B of 16-byte padded grids, and the blocks an SM holds keep their
+    8 warps."""
+    grids = registered_grids()
+    assert {(5, 5), (9, 9), (19, 19), (22, 22), (25, 25)} <= set(grids)
+    least = F.BARRIER_BYTES + F.RUN_SLACK
+    for w, h in grids:
+        nc = w * h
+        for envs in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            words = envs * ((nc | 1) + view ** 2)
+            staged = F.shared_memory_bytes(nc, view, envs) - (
+                (words + 3) // 4 * 16)
+            run = envs * 5 * nc
+            assert run + least <= staged <= run + least + 15, (w, h, envs)
+            assert staged % 16 == 0
+    if view == 7:
+        assert F.shared_memory_bytes(625, 7, 32) == 186368 <= 186624
+        geo = F.launch_geometry(4096, 25, 25, 7, 132)
+        assert (geo.envs_per_block, geo.shared_memory_bytes) == (32, 186368)
+        assert F.resident_warps(geo) == 8
 
 
 def test_require_core_dynamics_rejects_hooked_envs():

@@ -35,30 +35,41 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("env_id,kind,B,reset", [
-    ("MiniGrid-DoorKey-8x8-v0", "uniform", 4096, False),
-    ("MiniGrid-Empty-8x8-v0", "uniform", 4096, False),
-    ("MiniGrid-DoorKey-5x5-v0", "interact", 4096, False),
-    ("MiniGrid-DoorKey-8x8-v0", "uniform", 4000, False),
-    ("MiniGrid-DoorKey-8x8-v0", "uniform", 4096, True),
-    ("MiniGrid-DoorKey-16x16-v0", "interact", 1000, True),
+@pytest.mark.parametrize("env_id,kind,B,reset,skip", [
+    ("MiniGrid-DoorKey-8x8-v0", "uniform", 4096, False, 0),
+    ("MiniGrid-Empty-8x8-v0", "uniform", 4096, False, 0),
+    ("MiniGrid-DoorKey-5x5-v0", "interact", 4096, False, 0),
+    ("MiniGrid-DoorKey-8x8-v0", "uniform", 4000, False, 0),
+    ("MiniGrid-DoorKey-8x8-v0", "uniform", 4096, True, 0),
+    ("MiniGrid-DoorKey-16x16-v0", "interact", 1000, True, 0),
     # 25x25 (32 envs a block at G=8), 16x8 (W != H), see-through walls
-    ("MiniGrid-MultiRoom-N6-v0", "interact", 4096, False),
-    ("MiniGrid-MultiRoom-N6-v0", "interact", 1000, True),
-    ("MiniGrid-RedBlueDoors-8x8-v0", "interact", 4096, True),
-    ("MiniGrid-Fetch-8x8-N3-v0", "interact", 4096, False),
-    ("MiniGrid-Dynamic-Obstacles-16x16-v0", "uniform", 1000, True),
-    ("MiniGrid-LavaCrossingS11N5-v0", "uniform", 4096, True),
+    ("MiniGrid-MultiRoom-N6-v0", "interact", 4096, False, 0),
+    ("MiniGrid-MultiRoom-N6-v0", "interact", 1000, True, 0),
+    ("MiniGrid-RedBlueDoors-8x8-v0", "interact", 4096, True, 0),
+    ("MiniGrid-Fetch-8x8-N3-v0", "interact", 4096, False, 0),
+    ("MiniGrid-Dynamic-Obstacles-16x16-v0", "uniform", 1000, True, 0),
+    ("MiniGrid-LavaCrossingS11N5-v0", "uniform", 4096, True, 0),
     # BabyAI's 3x3 maze of 8-rooms (22x22) and ObstructedMaze-Full (16x16),
     # the step entry without a row (their hook path)
-    ("BabyAI-BossLevel-v0", "uniform", 4096, False),
-    ("BabyAI-BossLevel-v0", "interact", 1001, False),
-    ("MiniGrid-ObstructedMaze-Full-v0", "interact", 4096, False),
+    ("BabyAI-BossLevel-v0", "uniform", 4096, False, 0),
+    ("BabyAI-BossLevel-v0", "interact", 1001, False, 0),
+    ("MiniGrid-ObstructedMaze-Full-v0", "interact", 4096, False, 0),
     # WFC's 25x25 layouts, with the pooled row (no step hooks)
-    ("MiniGrid-WFC-ObstaclesAngular-v0", "interact", 1024, True),
+    ("MiniGrid-WFC-ObstaclesAngular-v0", "interact", 1024, True, 0),
+    # grids of W*H*5 bytes that are no multiple of 16: 5x5 with the row,
+    # 9x9, 19x19
+    ("MiniGrid-Empty-5x5-v0", "interact", 4096, True, 0),
+    ("MiniGrid-LavaCrossingS9N2-v0", "interact", 4096, True, 0),
+    ("MiniGrid-FourRooms-v0", "interact", 1001, True, 0),
+    # a grid input that starts off a 16-byte boundary: envs skip.. of a
+    # contiguous batch, whose run offsets differ from the output's
+    ("MiniGrid-MultiRoom-N6-v0", "interact", 1001, True, 1),
+    ("BabyAI-BossLevel-v0", "interact", 4096, False, 1),
+    ("MiniGrid-LavaCrossingS9N2-v0", "uniform", 1001, True, 3),
 ])
-def test_kernel_matches_plain_on_card(cuda_device, env_id, kind, B, reset):
-    _check_case(cuda_device, env_id, kind, B, reset)
+def test_kernel_matches_plain_on_card(cuda_device, env_id, kind, B, reset,
+                                      skip):
+    _check_case(cuda_device, env_id, kind, B, reset, skip=skip)
 
 
 @pytest.mark.gpu
@@ -149,12 +160,18 @@ def test_recurrent_forward_card_matches_cpu(cuda_device):
     assert torch.isfinite(lb).all() and torch.isfinite(vb).all()
 
 
-def _check_case(device, env, kind, B, reset, group_lanes=None, T=32):
-    """One launch of the kernel against the plain version, bit-exact."""
+def _check_case(device, env, kind, B, reset, group_lanes=None, T=32,
+                skip=0):
+    """One launch of the kernel against the plain version, bit-exact; with
+    ``skip``, on the contiguous view of envs ``skip..`` of a batch of
+    ``B + skip``, whose grid does not start on a 16-byte boundary."""
     if isinstance(env, str):
         env = minigrid_tpu_torch.make(env, device=device).packed()
     g = env.generator(0)
-    _, st = (env.reset_staggered if reset else env.reset)(g, B)
+    _, st = (env.reset_staggered if reset else env.reset)(g, B + skip)
+    if skip:
+        st = st.map(lambda t: t[skip:])
+        assert st.grid.is_contiguous() and st.grid.data_ptr() % 16 != 0
     rng = np.random.default_rng(1)
     choices = INTERACT if kind == "interact" else np.arange(7)
     actions = torch.from_numpy(choices[rng.integers(0, len(choices), (T, B))]
