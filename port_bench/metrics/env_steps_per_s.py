@@ -1,0 +1,9 @@
+"""env_steps_per_s: batch x the steps completed in the window, over the
+window's seconds (closed by a synchronisation), host clock."""
+
+
+def read(run):
+    w = run.window
+    if not w.get("seconds") or "latencies" not in w:
+        return None
+    return w["env_steps"] / w["seconds"]

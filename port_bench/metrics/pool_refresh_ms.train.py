@@ -1,0 +1,9 @@
+"""pool_refresh_ms.train: mean host milliseconds of one call of the pool
+refresh in the traced window, a synchronisation at both edges (the
+benchmark's span)."""
+
+from harness.readers import span_ms
+
+
+def read(run):
+    return span_ms(run, "pool_refresh")
