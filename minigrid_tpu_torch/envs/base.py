@@ -47,6 +47,7 @@ from minigrid_tpu_torch.ops.fused_step import (fused_observe, fused_rollout,
                                                has_step_hooks, pack_rows,
                                                require_core_dynamics,
                                                unpack_rows)
+from minigrid_tpu_torch.utils import trace
 
 # The XOR salt that derives a reset episode's rng from its step key
 # (minigrid_tpu/envs/base.py:_apply_broadcast_reset), as int32 bit patterns.
@@ -127,9 +128,11 @@ def states_from_pool(rows: LayoutPool) -> EnvState:
 def make_layout_pool(env, generator: torch.Generator,
                      pool_size: int = 1024) -> LayoutPool:
     """A fresh pool of ``pool_size`` independent reset layouts."""
-    return pool_from_states(env._gen_grid(generator, pool_size))
+    with trace.span("gen"):
+        return pool_from_states(env._gen_grid(generator, pool_size))
 
 
+@trace.spanned("pool_refresh")
 def refresh_layout_pool(env, generator: torch.Generator,
                         pool: LayoutPool) -> LayoutPool:
     """Regenerate every pool entry (between train steps)."""
@@ -158,17 +161,18 @@ def _apply_broadcast_reset(keys, st: EnvState, done, reset_row: LayoutPool):
     (kernel or plain version), after the transition and before the one
     observation, the order of the JAX package's ``_apply_broadcast_reset``;
     this completes the select on the fields the kernel does not carry."""
-    salt = torch.as_tensor(RESET_RNG_SALT, device=keys.device)
-    d = done[:, None]
-    kw = {}
-    if st.extra is not None:
-        kw["extra"] = {
-            k: torch.where(done.reshape((-1,) + (1,) * (v.ndim - 1)),
-                           reset_row.extra[k], v)
-            for k, v in st.extra.items()}
-    return st.replace(
-        rng=torch.where(d, keys ^ salt, st.rng),
-        mission=torch.where(d, reset_row.mission, st.mission), **kw)
+    with trace.span("env.select"):
+        salt = torch.as_tensor(RESET_RNG_SALT, device=keys.device)
+        d = done[:, None]
+        kw = {}
+        if st.extra is not None:
+            kw["extra"] = {
+                k: torch.where(done.reshape((-1,) + (1,) * (v.ndim - 1)),
+                               reset_row.extra[k], v)
+                for k, v in st.extra.items()}
+        return st.replace(
+            rng=torch.where(d, keys ^ salt, st.rng),
+            mission=torch.where(d, reset_row.mission, st.mission), **kw)
 
 
 def broadcast_candidates(keys, reset_row: LayoutPool) -> EnvState:
@@ -244,8 +248,9 @@ def select_reset_states(done, states: EnvState,
         mask = done.reshape((-1,) + (1,) * (cur.ndim - 1))
         return torch.where(mask, new[k], cur)
 
-    return states.with_tensors({k: pick(v, k)
-                                for k, v in states.tensors().items()})
+    with trace.span("env.select"):
+        return states.with_tensors({k: pick(v, k)
+                                    for k, v in states.tensors().items()})
 
 
 def autoreset_step_select(env, states: EnvState, actions,
@@ -288,9 +293,10 @@ def select_obs(done, obs, obs_r):
         return torch.where(done.reshape((-1,) + (1,) * (cur.ndim - 1)), new,
                            cur)
 
-    if isinstance(obs, dict):
-        return {k: pick(v, obs_r[k]) for k, v in obs.items()}
-    return pick(obs, obs_r)
+    with trace.span("env.select"):
+        if isinstance(obs, dict):
+            return {k: pick(v, obs_r[k]) for k, v in obs.items()}
+        return pick(obs, obs_r)
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +310,8 @@ def presample_fresh_reset_states(env, generator: torch.Generator,
                                  n: int) -> EnvState:
     """``n`` independent fresh layouts, stacked (size it above the chunk's
     expected consumption; see ``models.ppo.fresh_sizes``)."""
-    return env._gen_grid(generator, n)
+    with trace.span("gen"):
+        return env._gen_grid(generator, n)
 
 
 def autoreset_step_fresh(env, keys, states: EnvState, actions,
@@ -344,21 +351,22 @@ def fresh_candidates(keys, done, buffer: EnvState, cursor, window: int,
     n_buf = buffer.batch_size
     if not 1 <= window <= n_buf:
         raise ValueError(f"window must be in [1, {n_buf}], got {window}")
-    d = done.to(torch.int32)
-    rank = torch.cumsum(d, 0, dtype=torch.int32) - d
-    total = d.sum(dtype=torch.int32)
-    if finishers is not None:
-        offset, total = finishers(total)
-        rank = rank + offset
-    slot = torch.clamp(rank, max=window - 1)
-    start = torch.clamp(cursor, max=n_buf - window)
-    rows = (start + slot).to(torch.int64)
-    salt = torch.as_tensor(RESET_RNG_SALT, device=keys.device)
-    cand = buffer.map(lambda x: x[rows]).replace(rng=keys ^ salt)
-    overrun_rows = torch.clamp(cursor - (n_buf - window), min=0)
-    overflow = (done & ((rank >= window) | (slot < overrun_rows))).sum(
-        dtype=torch.int32)
-    return cand, overflow, cursor + total
+    with trace.span("env.select"):
+        d = done.to(torch.int32)
+        rank = torch.cumsum(d, 0, dtype=torch.int32) - d
+        total = d.sum(dtype=torch.int32)
+        if finishers is not None:
+            offset, total = finishers(total)
+            rank = rank + offset
+        slot = torch.clamp(rank, max=window - 1)
+        start = torch.clamp(cursor, max=n_buf - window)
+        rows = (start + slot).to(torch.int64)
+        salt = torch.as_tensor(RESET_RNG_SALT, device=keys.device)
+        cand = buffer.map(lambda x: x[rows]).replace(rng=keys ^ salt)
+        overrun_rows = torch.clamp(cursor - (n_buf - window), min=0)
+        overflow = (done & ((rank >= window) | (slot < overrun_rows))).sum(
+            dtype=torch.int32)
+        return cand, overflow, cursor + total
 
 
 def _fresh_select(env, keys, st: EnvState, done, buffer: EnvState, cursor,
@@ -402,22 +410,25 @@ def hooked_step(env, keys, states: EnvState, actions):
     observed field), else None."""
     prev = states
     action, forwarded = _actions(actions), []
-    for w in env.transitions:
-        action = _actions(w.transform_action(keys, prev, action))
-        forwarded.append(action)
-    action = _actions(env._transform_action(states, action))
-    states = env._pre_step(keys, states, action)
+    with trace.span("env.hooks"):
+        for w in env.transitions:
+            action = _actions(w.transform_action(keys, prev, action))
+            forwarded.append(action)
+        action = _actions(env._transform_action(states, action))
+        states = env._pre_step(keys, states, action)
     st, obs, reward, term, _ = fused_rollout(env.params, states, action[None])
-    new, reward, term = env._post_step(prev, st, action, reward[0], term[0])
-    obs = obs[0] if new is st else None
-    new = new.replace(terminated=term)
-    trunc = new.truncated
-    for w, a in zip(env.transitions[::-1], forwarded[::-1]):
-        out, reward, term, trunc = w.transform_outcome(
-            keys, prev, new, a, reward, term, trunc)
-        if any(getattr(out, f) is not getattr(new, f) for f in OBSERVED):
-            obs = None
-        new = out
+    with trace.span("env.hooks"):
+        new, reward, term = env._post_step(prev, st, action, reward[0],
+                                           term[0])
+        obs = obs[0] if new is st else None
+        new = new.replace(terminated=term)
+        trunc = new.truncated
+        for w, a in zip(env.transitions[::-1], forwarded[::-1]):
+            out, reward, term, trunc = w.transform_outcome(
+                keys, prev, new, a, reward, term, trunc)
+            if any(getattr(out, f) is not getattr(new, f) for f in OBSERVED):
+                obs = None
+            new = out
     return new, obs, reward, term, trunc
 
 
@@ -549,7 +560,9 @@ class MiniGridEnv:
         return self._obs_dict(fused_observe(self.params, state), state)
 
     def reset(self, generator: torch.Generator, num_envs: int):
-        return self.reset_from(self._gen_grid(generator, num_envs))
+        with trace.span("gen"):
+            layouts = self._gen_grid(generator, num_envs)
+        return self.reset_from(layouts)
 
     def reset_from(self, states: EnvState):
         """The reset to the given layouts: (observation, states)."""
@@ -594,6 +607,7 @@ class MiniGridEnv:
             obs = fused_observe(self.params, st)
         return self._obs_dict(obs, st), st, reward, term, trunc, {}
 
+    @trace.spanned("env.step")
     def step_autoreset(self, keys, states: EnvState, actions,
                        generator: torch.Generator,
                        layouts: EnvState | None = None):
@@ -604,9 +618,11 @@ class MiniGridEnv:
         by the caller (a data rank's rows of the global batch's,
         ``models/ppo.py::rollout``) instead of here from ``generator``."""
         if layouts is None:
-            layouts = self._gen_grid(generator, states.batch_size)
+            with trace.span("gen"):
+                layouts = self._gen_grid(generator, states.batch_size)
         return autoreset_step_select(self, states, actions, layouts, keys)
 
+    @trace.spanned("env.step")
     def step_autoreset_presampled(self, keys, states: EnvState, actions,
                                   reset_row: LayoutPool):
         return autoreset_step_presampled(self, keys, states, actions,
@@ -618,6 +634,7 @@ class MiniGridEnv:
         return autoreset_step_pooled(self, keys, states, actions, pool,
                                      generator, independent)
 
+    @trace.spanned("env.step")
     def step_autoreset_fresh(self, keys, states: EnvState, actions,
                              buffer: EnvState, cursor, window: int = 32,
                              finishers=None):

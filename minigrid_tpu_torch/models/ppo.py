@@ -62,6 +62,7 @@ from minigrid_tpu_torch.envs.base import (LayoutPool, presample_reset_states,
                                           random_keys)
 from minigrid_tpu_torch.models.actor_critic import (encode_obs,
                                                     mission_counts)
+from minigrid_tpu_torch.utils import trace
 from minigrid_tpu_torch.wrappers import ReseedWrapper, Wrapper
 
 RESET_MODES = ("regen", "pooled", "fresh")
@@ -194,9 +195,11 @@ def regen_layouts(env, generator: torch.Generator, num_envs: int,
         if isinstance(env, ReseedWrapper):
             return None
         env = env.env
-    return env._gen_grid(generator, num_envs).map(lambda x: x[rows])
+    with trace.span("gen"):
+        return env._gen_grid(generator, num_envs).map(lambda x: x[rows])
 
 
+@trace.spanned("rollout")
 @torch.no_grad()
 def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
             resets: str = "pooled", generator: torch.Generator | None = None,
@@ -257,21 +260,23 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
                          "state h")
     steps = []
     for t in range(T):
-        if carry:
-            enc = encode_obs({view_key: obs[view_key],
-                              "mission_counts": counts,
-                              "direction": obs["direction"]})
-        elif std_obs:
-            enc = encode_obs(obs)
-        else:
-            enc = obs
-        if recurrent:
-            h_in = h
-            (logits, value), h = model(enc, h)
-        else:
-            logits, value = model(enc)
-        action = torch.argmax(logits + noise.gumbel[t], dim=-1)
-        log_prob = _selected_log_prob(torch.log_softmax(logits, -1), action)
+        with trace.span("policy"):
+            if carry:
+                enc = encode_obs({view_key: obs[view_key],
+                                  "mission_counts": counts,
+                                  "direction": obs["direction"]})
+            elif std_obs:
+                enc = encode_obs(obs)
+            else:
+                enc = obs
+            if recurrent:
+                h_in = h
+                (logits, value), h = model(enc, h)
+            else:
+                logits, value = model(enc)
+            action = torch.argmax(logits + noise.gumbel[t], dim=-1)
+            log_prob = _selected_log_prob(torch.log_softmax(logits, -1),
+                                          action)
         keys = noise.step_keys[t]
         if resets == "pooled":
             obs, env_state, reward, term, trunc, _ = \
@@ -504,6 +509,7 @@ def epoch_minibatches(data: dict, cfg: PPOConfig,
             yield {k: v[idx] for k, v in flat.items()}
 
 
+@trace.spanned("update")
 def ppo_update(model, optimizer, cfg: PPOConfig, traj: Transition,
                last_obs: dict, generator: torch.Generator,
                h: torch.Tensor | None = None, mesh=None) -> dict:
@@ -610,6 +616,7 @@ def make_train_step(env, model, cfg: PPOConfig, optimizer,
     n_buf, window = (fresh_sizes(env, cfg, fresh_buffer)
                      if resets == "fresh" else (None, 32))
 
+    @trace.spanned("train_step")
     def step(env_state, obs, h, generator, pool):
         if env_state.batch_size != local_envs:
             raise ValueError(f"env_state holds {env_state.batch_size} envs, "

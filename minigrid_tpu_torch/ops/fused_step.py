@@ -43,6 +43,7 @@ from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core.obs import gen_obs
 from minigrid_tpu_torch.core.step import step_core
 from minigrid_tpu_torch.core.types import EnvParams, EnvState
+from minigrid_tpu_torch.utils import trace
 
 NSCAL = 8  # x, y, dir, carrying, step_count, terminated, truncated, pad
 # odd view sizes the kernel takes: 32-bit view rows up to NARROW_VIEW,
@@ -541,6 +542,7 @@ def _fused_observe_cuda(params, states, group_lanes: int | None = None):
     return obs
 
 
+@trace.spanned("env.kernel")
 def fused_observe(params: EnvParams, states: EnvState) -> torch.Tensor:
     """The 9-bit packed view (B, V, V) int32, indexed [vx, vy], of each
     env's state as given: the observation half of the fused step, with no
@@ -554,6 +556,7 @@ def fused_observe(params: EnvParams, states: EnvState) -> torch.Tensor:
     return _fused_observe_cuda(params, states)
 
 
+@trace.spanned("env.kernel")
 def fused_rollout(params: EnvParams, states: EnvState, actions: torch.Tensor,
                   native_layout: bool = False,
                   reset_grid: torch.Tensor | None = None,

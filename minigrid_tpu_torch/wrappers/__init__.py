@@ -58,6 +58,7 @@ from minigrid_tpu_torch.envs.base import (_actions, _fresh_select,
 from minigrid_tpu_torch.envs.common import hash_scores
 from minigrid_tpu_torch.ops.fused_step import check_view_size, fused_observe
 from minigrid_tpu_torch.render import get_frame
+from minigrid_tpu_torch.utils import trace
 
 INNER = "inner."
 
@@ -143,6 +144,7 @@ class Wrapper:
     def step(self, keys, state, action):
         return self.env.step(keys, state, action)
 
+    @trace.spanned("env.step")
     def step_autoreset(self, keys, state, action, generator, layouts=None):
         return autoreset_step(self, keys, state, action, generator, layouts)
 
@@ -211,6 +213,7 @@ class Wrapper:
             obs = w.observation(obs, states)
         return obs
 
+    @trace.spanned("env.step")
     def step_autoreset_presampled(self, keys, states, actions, reset_row):
         base, _ = self._fast_base()
         obs, st, r, te, tr, i = base.step_autoreset_presampled(
@@ -224,6 +227,7 @@ class Wrapper:
             keys, states, actions, pool, generator, independent)
         return self._apply_obs_chain(obs, st), st, r, te, tr, i
 
+    @trace.spanned("env.step")
     def step_autoreset_fresh(self, keys, states, actions, buffer, cursor,
                              window: int = 32, finishers=None):
         base, _ = self._fast_base()
@@ -374,6 +378,7 @@ class ReseedWrapper(Wrapper):
         obs, inner, r, te, tr, i = self.env.step(keys, state.inner, action)
         return obs, state.replace(inner=inner), r, te, tr, i
 
+    @trace.spanned("env.step")
     def step_autoreset(self, keys, state, action, generator, layouts=None):
         # the seeds dictate the layouts: neither argument is read
         obs, st, r, te, tr, i = self.step(keys, state, action)
@@ -435,6 +440,7 @@ class _StatefulFastPath(Wrapper):
         obs = self._augment_obs(self._apply_obs_chain(obs, st), st, w)
         return obs, WrappedState(inner=st, wrapper=w)
 
+    @trace.spanned("env.step")
     def step_autoreset_presampled(self, keys, states, actions, reset_row):
         env, st, r, te, tr, w = self._batched_step(keys, states, actions)
         st = select_reset_states(te | tr, st,
@@ -451,6 +457,7 @@ class _StatefulFastPath(Wrapper):
         return self.step_autoreset_presampled(
             keys, states, actions, draw_pool_row(generator, pool))
 
+    @trace.spanned("env.step")
     def step_autoreset_fresh(self, keys, states, actions, buffer, cursor,
                              window: int = 32, finishers=None):
         env, st, r, te, tr, w = self._batched_step(keys, states, actions)
@@ -498,6 +505,7 @@ class _CountBonus(_StatefulFastPath):
                                 action, r)
         return obs, state.replace(inner=inner, wrapper=counts), r, te, tr, i
 
+    @trace.spanned("env.step")
     def step_autoreset(self, keys, state, action, generator, layouts=None):
         # the reset keeps this wrapper's counts; the stack beneath it
         # resets whole, so an inner stacked bonus's counts restart (the
