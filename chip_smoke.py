@@ -21,6 +21,11 @@ Phases, each fatal on failure:
    row (their hook path); then the 64-bit view rows: both entries at views
    33 and 63 on DoorKey-8x8 and MultiRoom-N6 (25x25), B=1024, at every
    group width that fits;
+2b. the BabyAI post-step kernel (``csrc/babyai_post_step.cu``) against its
+   plain version on the same card inputs, bit for bit in both done-action
+   modes, 32 steps of PutNextLocal and of BossLevel (22x22) at B=4096, its
+   launches counted (``post_step_phase``); its device time, byte bound,
+   host cost a call and plain time at the end of phase 5;
 3. the main path through the public entry points: DoorKey-8x8 with packed
    observations, a 1024-entry layout pool, 4096 staggered envs, the bf16
    ActorCritic and one 128-step pooled rollout, with the kernel's launch
@@ -521,10 +526,12 @@ def clone_generator(g):
 def zero_counts():
     """Set every kernel launch count to 0: done just before a path is
     driven, whose counts are read just after."""
+    from minigrid_tpu_torch.envs.babyai.core.post_step import POST_STEP
     from minigrid_tpu_torch.ops.fused_step import KERNEL
 
-    KERNEL.launches = KERNEL.observe_launches = 0
-    KERNEL.wide_launches = KERNEL.wide_observe_launches = 0
+    for name in KERNEL.COUNTS:
+        setattr(KERNEL, name, 0)
+    POST_STEP.verify_launches = 0
 
 
 def assert_same(name, got, want):
@@ -807,6 +814,187 @@ def wfc_product_ms(preset="ObstaclesAngular", B=BATCH, shape=(23, 23)):
             lambda: torch.matmul(x, adj_t[0]), 20)
     out["product_flop"] = 2 * B * shape[0] * shape[1] * P * P  # unpadded
     return out
+
+
+# --- phase 2b: the BabyAI post-step kernel ----------------------------------
+# csrc/babyai_post_step.cu against its plain version on the same card inputs,
+# bit for bit in both done-action modes, at B=4096 on PutNextLocal (8x8, the
+# benchmark's train_fresh level) and BossLevel (22x22, the tallest masks),
+# its launches counted; its device time, byte bound, host cost a call and
+# plain time measured at the end of phase 5, after the fused kernel's
+# profiled timings (profiler sessions before those have cost them records)
+POST_STEP_LEVELS = ("BabyAI-PutNextLocal-v0", "BabyAI-BossLevel-v0")
+POST_STEP_T = 32  # steps a level is checked over, each in both modes
+
+
+def post_step_bytes(B: int, H: int) -> int:
+    """Bytes one launch of the post-step kernel has to move: each input read
+    once and each output written once. In: the two (8, H) int32 mask arrays,
+    per state the position, direction and carried object and the one grid
+    cell in front (5 bytes), the step count, the action, the InstrState's
+    other fields (root 4, two flags 2, kinds 16, strict 4, carried 8, memory
+    4 x 4, two flags 2), the budget, the reward and terminated. Out: the two
+    mask arrays, status, reward and the 28 flag bytes."""
+    state = 8 + 4 + 5 + 5
+    scalars_in = 2 * state + 4 + 4 + (4 + 2 + 16 + 4 + 8 + 16 + 2) + 4 + 4 + 1
+    masks = 2 * 8 * H * 4
+    return B * (masks + scalars_in + masks + 4 + 4 + 28)
+
+
+def host_us(fn, reps: int = 200, rounds: int = 5) -> float:
+    """Host microseconds a call of ``fn`` (``time.perf_counter`` over
+    ``reps`` calls, the device synchronised before and after; the best of
+    ``rounds``): what the host spends, the device's time hidden under it."""
+    import torch
+
+    fn()
+    best = math.inf
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return 1e6 * best / reps
+
+
+def post_step_case(env_id: str, B: int = BATCH, T: int = POST_STEP_T):
+    """``T`` steps of ``env_id`` at ``B``: the core transition by the step
+    entry, then the post-step by the kernel and by its plain version on the
+    same inputs in both done-action modes, every output equal (the reward by
+    its bits), the inputs unchanged, one launch a kernel call; the batch
+    goes on from the kernel's outputs. Returns (the case's counts, a
+    function that times the kernel on the last step's inputs)."""
+    import torch
+
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch.envs.babyai.core import post_step as PS
+    from minigrid_tpu_torch.ops.fused_step import fused_rollout
+
+    env = mt.make(env_id, device="cuda").packed()
+    g = env.generator(SEED + 17)
+    _, st = env.reset(g, B)
+    ms = st.extra["max_steps"]
+    st = st.replace(step_count=(ms - 1 - torch.arange(
+        B, device="cuda") % (2 * T)).clamp(min=0).to(torch.int32))
+    # every action, interactions twice as often as turns and moves
+    choice = torch.tensor([0, 1, 2, 3, 3, 4, 4, 5, 5, 6, 6], device="cuda")
+    ended = {False: 0, True: 0}
+    truncated = calls = 0
+    zero_counts()
+    for t in range(T):
+        a = choice[torch.randint(0, len(choice), (B,), generator=g,
+                                 device="cuda")].to(torch.int32)
+        new, _, reward, term, _ = fused_rollout(env.params, st, a[None])
+        args = (env.params, st, new, a, reward[0], term[0])
+        inputs = PS._inputs(*args[1:])
+        before = [x.clone() for x in inputs]
+        for mode in (True, False):
+            got = PS._babyai_post_step_cuda(*args, mode)
+            calls += 1
+            want = PS.babyai_post_step_reference(*args, mode)
+            where = f"{short(env_id)} post-step {t}, done actions {mode}"
+            assert_same(f"{where} status", got[0], want[0])
+            assert_same(f"{where} reward bits", got[2].view(torch.int32),
+                        want[2].view(torch.int32))
+            assert_same(f"{where} terminated", got[3], want[3])
+            assert_same(f"{where} truncated", got[4], want[4])
+            assert_same(f"{where} instr",
+                        {k: got[1].get(k, st.extra[k]) for k in want[1]},
+                        want[1])
+            ended[mode] += int((got[0] != 0).sum())
+        for (name, _, _), x, y in zip(
+                PS._specs(B, env.params.width, env.params.height), inputs,
+                before):
+            assert_same(f"{short(env_id)} post-step {t} input {name}", x, y)
+        _, instr, _, te, tr = got
+        truncated += int(tr.sum())
+        st = new.replace(terminated=te, truncated=tr,
+                         extra={**new.extra, **instr})
+    torch.cuda.synchronize()
+    if PS.POST_STEP.verify_launches != calls:
+        raise AssertionError(f"{env_id}: {PS.POST_STEP.verify_launches} "
+                             f"post-step launches over {calls} calls")
+    # (a put-next seldom succeeds by chance: the default mode may end none)
+    if not (ended[True] and truncated):
+        raise AssertionError(f"{env_id}: ended {ended}, {truncated} "
+                             f"truncated: the case tests too little")
+    H = env.params.height
+    moved = post_step_bytes(B, H)
+    args = (*args, False)
+    level_args = args[1:6]
+
+    def times() -> dict:
+        return {
+            "ms": device_ms(lambda: PS._babyai_post_step_cuda(*args), 200,
+                            kernel="babyai_post_step_kernel"),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": moved,
+            "plain_ms": cuda_ms(
+                lambda: PS.babyai_post_step_reference(*args), 20),
+            "wrapper_host_us": host_us(
+                lambda: PS._babyai_post_step_cuda(*args)),
+            "post_step_host_us": host_us(
+                lambda: env._post_step(*level_args)),
+        }
+
+    return {"B": B, "H": H, "steps": T, "launches": calls,
+            "not_continue": ended, "truncated": truncated}, times
+
+
+def post_step_phase(card: str):
+    """The post-step kernel's check on every level of
+    :data:`POST_STEP_LEVELS`, printed; returns a function that times it on
+    each and returns its ``kernels`` entry."""
+    from minigrid_tpu_torch.envs.babyai.core import post_step as PS
+
+    t0 = time.perf_counter()
+    PS.POST_STEP.library()
+    print(f"post-step kernel built in {time.perf_counter() - t0:.2f} s")
+    for line in PS.POST_STEP.build_log.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print("  " + line.strip())
+    shapes, timers = {}, {}
+    for env_id in POST_STEP_LEVELS:
+        case, timers[short(env_id)] = post_step_case(env_id)
+        shapes[short(env_id)] = case
+        print(f"post-step kernel, {short(env_id)} B={case['B']} "
+              f"H={case['H']}: {case['launches']} launches over "
+              f"{case['steps']} steps in both done-action modes == plain "
+              f"bit for bit (statuses other than continue "
+              f"{case['not_continue']}, {case['truncated']} "
+              f"truncated)")
+
+    def times() -> dict:
+        for name, case in shapes.items():
+            case.update(timers[name]())
+            print(f"post-step kernel, {name} B={case['B']}: "
+                  f"{1e3 * case['ms']:.2f} us a launch against a "
+                  f"{1e3 * case['bound_ms']:.2f} us byte bound, plain "
+                  f"{case['plain_ms']:.3f} ms; host "
+                  f"{case['wrapper_host_us']:.1f} us a wrapper call, "
+                  f"{case['post_step_host_us']:.1f} us a _post_step "
+                  f"({card})")
+        first = shapes[short(POST_STEP_LEVELS[0])]
+        return {
+            "name": "babyai_post_step",
+            "route": "cuda",
+            "source": "minigrid_tpu_torch/csrc/babyai_post_step.cu",
+            # the JAX package's verifier is jnp under jit: no Pallas kernel
+            "replaces": None,
+            "launches": sum(c["launches"] for c in shapes.values()),
+            "max_abs_err": 0.0,
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": None,
+            "host_us": first["wrapper_host_us"],
+            "shapes": shapes,
+        }
+
+    return times
 
 
 # --- phase 4b: the package surface -------------------------------------------
@@ -1655,6 +1843,7 @@ def main() -> int:
     from minigrid_tpu_torch.envs.babyai.core import level as level_module
     from minigrid_tpu_torch.envs.babyai.core.level import (USE_DONE_ACTIONS,
                                                            RoomGridLevel)
+    from minigrid_tpu_torch.envs.babyai.core.post_step import POST_STEP
     from minigrid_tpu_torch.models.bc import behavior_clone
     from minigrid_tpu_torch.models.eval import episode_budget, evaluate_success
     from minigrid_tpu_torch.utils.demos import generate_demos
@@ -1943,6 +2132,9 @@ def main() -> int:
 
     F.gen_obs, F.step_core = gen_obs_on_cpu_only, step_core_on_cpu_only
 
+    # --- 2b. the BabyAI post-step kernel against its plain version ------
+    post_step_times = post_step_phase(card)
+
     # --- 3. the main path -----------------------------------------------
     env = mt.make(ENV_ID, device="cuda").packed()
     g = env.generator(SEED)
@@ -2136,18 +2328,19 @@ def main() -> int:
             n_done += int((out[3] | out[4]).sum())
             n_success += int((out[2] > 0).sum())
         level_module.USE_DONE_ACTIONS = USE_DONE_ACTIONS
-        want = (T, T if level else T // 2)
-        launched = (KERNEL.launches, KERNEL.observe_launches)
+        want = (T, T if level else T // 2, T if level else 0)
+        launched = (KERNEL.launches, KERNEL.observe_launches,
+                    POST_STEP.verify_launches)
         if launched != want:
-            raise AssertionError(f"{env_id}: (step, observe) launches "
-                                 f"{launched}, expected {want}")
+            raise AssertionError(f"{env_id}: (step, observe, post-step) "
+                                 f"launches {launched}, expected {want}")
         if n_done < B // 2:
             raise AssertionError(f"{env_id}: only {n_done} episodes ended")
         mode = ", done actions" if done_actions else ""
         print(f"hook path, {short(env_id)}{mode} (B={B}, T={T}): {n_done} "
               f"episodes ended, {n_success} rewarded; {want[0]} step + "
-              f"{want[1]} observe launches; card == CPU replay, extra "
-              f"included")
+              f"{want[1]} observe + {want[2]} post-step launches; card == "
+              f"CPU replay, extra included")
 
     for env_id in HOOK_FAMILIES + ROOMGRID_HOOKS:
         replay_hooks(env_id)
@@ -2274,10 +2467,12 @@ def main() -> int:
         eps = bot_episodes(benv, obs0, st0_b, BOT_STEPS, trace)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launched = (KERNEL.launches, KERNEL.observe_launches)
-        if launched != (len(trace), len(trace)):
-            raise AssertionError(f"{level}: (step, observe) launches "
-                                 f"{launched} over {len(trace)} steps")
+        launched = (KERNEL.launches, KERNEL.observe_launches,
+                    POST_STEP.verify_launches)
+        if launched != (len(trace),) * 3:
+            raise AssertionError(f"{level}: (step, observe, post-step) "
+                                 f"launches {launched} over {len(trace)} "
+                                 f"steps")
         solved = [b for b, e in enumerate(eps) if e[4]]
         if not solved:
             raise AssertionError(f"the bot solved no seed of {level} in "
@@ -2305,8 +2500,8 @@ def main() -> int:
         print(f"bot, {short(level)}: solved seeds {solved} of "
               f"{BOT_SEEDS} in {lengths} steps; {len(trace)} batch steps "
               f"(B={BOT_SEEDS}) in {secs:.2f} s on the card, {launched[0]} "
-              f"step + {launched[1]} observe launches; the CPU replay "
-              f"bit-exact (host clock; {card})")
+              f"step + {launched[1]} observe + {launched[2]} post-step "
+              f"launches; the CPU replay bit-exact (host clock; {card})")
 
     # --- 3d. WaveFunctionCollapse on the card ----------------------------
     # the solver on the card against the CPU from the same keys, a pool of
@@ -2373,6 +2568,7 @@ def main() -> int:
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / reps
         launches_t = KERNEL.launches, KERNEL.observe_launches
+        verify_launches = POST_STEP.verify_launches
         one_launch = (mode == "pooled" and wrap is None
                       and not has_step_hooks(tenv))
         visits = [int(v) for v in visits]
@@ -2385,6 +2581,10 @@ def main() -> int:
             raise AssertionError(f"{short(env_id)} {mode} train steps: "
                                  f"(step, observe) launches {launches_t}, "
                                  f"expected {want}")
+        # a BabyAI level's post-step: one kernel launch an env step
+        if verify_launches != (reps * ROLLOUT_LEN if budget else 0):
+            raise AssertionError(f"{short(env_id)} {mode} train steps: "
+                                 f"{verify_launches} post-step launches")
         metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
         overflow = sum(m.get("reset_overflow", 0) for m in metrics)
         for m in metrics:
@@ -2445,6 +2645,7 @@ def main() -> int:
                 "observe_launches": launches_t[1],
                 "launches_per_step": launches_t[0] // reps,
                 "observe_launches_per_step": launches_t[1] // reps,
+                "verify_launches_per_step": verify_launches // reps,
                 "peak_gib": peak, "visits": visits,
                 "metrics": metrics[-1]}, profile_rollout
 
@@ -3010,6 +3211,7 @@ def main() -> int:
               f"{kernels / ROLLOUT_LEN:.1f} device kernels + "
               f"{copies / ROLLOUT_LEN:.1f} copies per step ({card})")
     del profile_later
+    post_step_kernel = post_step_times()
 
     # --- 6. learning on the card ----------------------------------------
     def learn(env_id, updates, resets, packed, num_epochs=2, num_envs=128,
@@ -3348,6 +3550,10 @@ def main() -> int:
         "library_ms": None,
         "shapes": {k: observe_shape(v) for k, v in wide_shapes.items()},
     }]
+    post_step_kernel["launches_per_train_step"] = {
+        k: t["verify_launches_per_step"] for k, t in train.items()
+        if "verify_launches_per_step" in t}  # the recurrent step's has none
+    kernels.append(post_step_kernel)
     print(json.dumps({"train_step": {k: {kk: vv for kk, vv in t.items()
                                          if kk != "metrics"}
                                      for k, t in train.items()},

@@ -15,7 +15,8 @@ The level's step is a ``_post_step`` hook around the fused step (the JAX
 package overrides ``step_state``): the verifier against the previous state,
 the success reward ``1 - 0.9 * t / max_steps``, no reward on failure, the
 episode ends when the verifier says so, and truncation at the dynamic
-budget.
+budget; on the card one launch of the BabyAI post-step kernel
+(``post_step.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import roomgrid as RG
 from minigrid_tpu_torch.envs.babyai.core import instrs as I
+from minigrid_tpu_torch.envs.babyai.core.post_step import babyai_post_step
 from minigrid_tpu_torch.envs.roomgrid_base import RoomGridEnv
 
 # BABYAI_DONE_ACTIONS switches to explicit-done verification
@@ -286,16 +288,12 @@ class RoomGridLevel(RoomGridEnv):
 
     def _post_step(self, prev, state, action, reward, terminated):
         """The level's step (the JAX package's ``step_state``,
-        level.py:279-299) after the core transition ``prev`` -> ``state``."""
-        status, instr = I.verify(self.params,
-                                 I.InstrState.from_extra(prev.extra), prev,
-                                 state, action, USE_DONE_ACTIONS)
-        dyn_max = prev.extra["max_steps"]
-        success_reward = 1.0 - 0.9 * state.step_count.to(torch.float32) \
-            / dyn_max.to(torch.float32)
-        reward = torch.where(status == I.SUCCESS, success_reward,
-                             torch.where(status == I.FAILURE, 0.0, reward))
-        terminated = terminated | (status != I.CONTINUE)
-        state = state.replace(truncated=state.step_count >= dyn_max,
-                              extra={**state.extra, **instr.to_extra()})
+        level.py:279-299) after the core transition ``prev`` -> ``state``:
+        ``post_step.py::babyai_post_step``, one kernel launch on the
+        card."""
+        _, instr, reward, terminated, truncated = babyai_post_step(
+            self.params, prev, state, action, reward, terminated,
+            USE_DONE_ACTIONS)
+        state = state.replace(truncated=truncated,
+                              extra={**state.extra, **instr})
         return state, reward, terminated

@@ -23,7 +23,8 @@ CUDA tensors take the kernel or raise; nothing falls back.
 The kernel is compiled at first use with ``nvcc`` into a shared library with
 a plain C interface, under ``minigrid_tpu_torch/_build/`` (named by a hash of
 the source and flags, so an edited source is rebuilt), and loaded with
-``ctypes``.
+``ctypes``. :func:`build` takes the sources of any other kernel of the
+package's plain C route.
 """
 
 from __future__ import annotations
@@ -213,14 +214,15 @@ class FusedStepKernel:
     of its launches: ``launches`` of the step entry, ``observe_launches`` of
     the observe entry, and of those the launches at views wider than
     :data:`NARROW_VIEW` (the 64-bit-row family), ``wide_launches`` and
-    ``wide_observe_launches`` (plain ints that only the launches add
-    to)."""
+    ``wide_observe_launches`` (plain ints that only the launches add to,
+    named in :attr:`COUNTS`)."""
+
+    COUNTS = ("launches", "observe_launches", "wide_launches",
+              "wide_observe_launches")
 
     def __init__(self):
-        self.launches = 0
-        self.observe_launches = 0
-        self.wide_launches = 0
-        self.wide_observe_launches = 0
+        for name in self.COUNTS:
+            setattr(self, name, 0)
         self.build_log = ""
         self._lib = None
 
@@ -253,19 +255,20 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/fused_step.cu`` (once per source and flag set) and
+def build(sources: tuple = (SOURCE,)) -> tuple[Path, str]:
+    """Compile ``sources`` (``.cu`` files) into one library, named after the
+    first, under :data:`BUILD_DIR` (once per sources and flag set), and
     return (library path, compiler output). The output carries ptxas's
     register, shared-memory and spill report; empty when already built."""
-    src = SOURCE.read_bytes()
+    src = b"".join(Path(path).read_bytes() for path in sources)
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfused_step_{tag}.so"
+    out = BUILD_DIR / f"lib{Path(sources[0]).stem}_{tag}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

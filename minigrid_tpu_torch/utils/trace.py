@@ -194,9 +194,12 @@ def counters() -> dict:
     """One flat snapshot of the program's counters: ``gen.*`` the RoomGrid
     and BabyAI generators' (``core/roomgrid.py::COUNTERS``), ``wfc.*`` the
     WFC solver's (``envs/wfc/solver.py::COUNTERS``) and ``kernel.*`` the
-    fused kernel's launch counts (``ops/fused_step.py::KERNEL``)."""
+    launch counts of the fused kernel (``ops/fused_step.py::KERNEL``) and
+    of the BabyAI post-step kernel (``envs/babyai/core/post_step.py::
+    POST_STEP``)."""
     # imported here: the env and kernel modules import this one
     from minigrid_tpu_torch.core import roomgrid
+    from minigrid_tpu_torch.envs.babyai.core.post_step import POST_STEP
     from minigrid_tpu_torch.envs.wfc import solver
     from minigrid_tpu_torch.ops.fused_step import KERNEL
 
@@ -204,7 +207,6 @@ def counters() -> dict:
     for prefix, obj in (("gen", roomgrid.COUNTERS), ("wfc", solver.COUNTERS)):
         out.update({f"{prefix}.{f.name}": getattr(obj, f.name)
                     for f in dataclasses.fields(obj)})
-    out.update({f"kernel.{k}": getattr(KERNEL, k)
-                for k in ("launches", "observe_launches", "wide_launches",
-                          "wide_observe_launches")})
+    out.update({f"kernel.{k}": getattr(KERNEL, k) for k in KERNEL.COUNTS})
+    out["kernel.verify_launches"] = POST_STEP.verify_launches
     return out

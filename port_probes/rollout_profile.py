@@ -6,6 +6,7 @@ sweep of the kernel's group width G.
 
     python3 port_probes/rollout_profile.py [--steps 16] [--train-only]
                                            [--sweep-only]
+                                           [--span-split [--seed N]]
 
 Prints the card, the host time per rollout step, the device busy share
 (union of kernel intervals over the profiled wall time), the top device
@@ -29,12 +30,20 @@ steps of ``chip_smoke.FAMILY_TRAIN`` (MultiRoom-N6 pooled,
 Dynamic-Obstacles-16x16 pooled, Fetch-8x8-N3 fresh, BabyAI-GoToObj and
 BabyAI-PutNextLocal fresh, KeyCorridorS6R3 pooled; a BabyAI batch staggered
 and its fresh buffer sized as ``chip_smoke.stagger_budget`` does). Needs a
-CUDA device.
+CUDA device. ``--span-split`` runs only a PutNextLocal fresh train step as
+the benchmark's ``train_fresh`` cell runs it (B=4096, T=128, ``PPOConfig()``,
+bf16 ``ActorCritic(256)``, staggered and buffered by
+``chip_smoke.stagger_budget``), one warm-up and ``--steps`` timed under
+``trace.enable()`` (no profiler): the host ms a step of each program span,
+and the BabyAI post-step kernel's launches against the level's
+``_post_step`` calls, as one JSON line; it needs nothing newer than the
+program's spans, so a copy of this file splits an older checkout's step.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import subprocess
 import sys
 import time
@@ -288,6 +297,67 @@ def sweep_observe(card: str) -> None:
               f"G={picked.group_lanes} ({picked.envs_per_block} envs)")
 
 
+def span_split(card: str, steps: int, seed: int) -> dict:
+    """The host split of a PutNextLocal fresh train step by the program's
+    spans (see the module's docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
+                                                        init_params)
+    from minigrid_tpu_torch.models.ppo import (PPOConfig, make_optimizer,
+                                               make_train_step)
+    from minigrid_tpu_torch.utils import trace
+
+    env = mt.make("BabyAI-PutNextLocal-v0", device="cuda").packed()
+    g = env.generator(seed)
+    cfg = PPOConfig()
+    model = init_params(ActorCritic(hidden=256, dtype=torch.bfloat16,
+                                    device="cuda"), g)
+    opt = make_optimizer(model, cfg)
+    obs, st = env.reset_staggered(g, cfg.num_envs)
+    st, fresh_buffer = cs.stagger_budget(env, st, g, "budget")
+    step = make_train_step(env, model, cfg, opt, resets="fresh",
+                           fresh_buffer=fresh_buffer)
+    post_steps = [0]
+    level_post_step = env._post_step
+
+    def counted(*a):
+        post_steps[0] += 1
+        return level_post_step(*a)
+
+    env._post_step = counted
+    st, obs, _ = step(st, obs, g)                              # warm-up
+    torch.cuda.synchronize()
+    launches = trace.counters().get("kernel.verify_launches", 0)
+    post_steps[0] = 0
+    trace.clear()
+    trace.enable()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        st, obs, _ = step(st, obs, g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    trace.disable()
+    summary = trace.summary()
+    trace.clear()
+    hooks = summary["env.hooks"]
+    return {"card": card, "seed": seed, "steps": steps,
+            "step_ms": sorted(1e3 * t for t in times),
+            "spans_ms_a_step": {k: {"calls": v["calls"] / steps,
+                                    "ms": v["ms"] / steps,
+                                    "self_ms": v["self_ms"] / steps}
+                                for k, v in summary.items()},
+            "verify_launches": trace.counters().get(
+                "kernel.verify_launches", 0) - launches,
+            "post_step_calls": post_steps[0],
+            "env_kernel_host_us": 1e3 * summary["env.kernel"]["ms"]
+            / summary["env.kernel"]["calls"],
+            "hooks_host_us_a_call": 1e3 * hooks["ms"] / hooks["calls"]}
+
+
 def main() -> int:
     import torch
 
@@ -296,6 +366,8 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true")
     ap.add_argument("--families", action="store_true")
     ap.add_argument("--sweep-only", action="store_true")
+    ap.add_argument("--span-split", action="store_true")
+    ap.add_argument("--seed", type=int, default=2718281829)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -307,6 +379,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
+    if args.span_split:
+        print(json.dumps(span_split(card, args.steps, args.seed)))
+        return 0
     env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
     g = env.generator(0)
     pool = env.make_pool(g, 1024)

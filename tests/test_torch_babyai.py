@@ -45,9 +45,11 @@ from minigrid_tpu_torch.envs.babyai.core import instrs as I
 from minigrid_tpu_torch.envs.babyai.core import level as L
 from minigrid_tpu_torch.envs.babyai.core import levelgen as LG
 from minigrid_tpu_torch.envs.babyai.levels import GoToObj
-from minigrid_tpu_torch.ops.fused_step import (has_step_hooks,
+from minigrid_tpu_torch.envs.babyai.core import post_step as PS
+from minigrid_tpu_torch.ops.fused_step import (fused_rollout, has_step_hooks,
                                                require_core_dynamics)
 
+from minigrid_tpu_torch.utils import trace
 from tests.torch_port_utils import (share_cpu,  # noqa: F401
                                     ALL_FIELDS, CPU, action_stream,
                                     assert_state_equal, categories,
@@ -289,6 +291,8 @@ def _check_level_steps(level, kind, T=24, mode=False):
                                           err_msg=msg)
         ends += int(np.asarray(te).sum())
         statuses += int((np.asarray(te) & (np.asarray(r) == 0)).sum())
+    # CPU tensors take the plain version: no post-step kernel launch
+    assert trace.counters()["kernel.verify_launches"] == 0
     return ends, statuses
 
 
@@ -325,6 +329,89 @@ def test_truncation_at_the_dynamic_budget():
                                      torch.full((64,), 0))
     np.testing.assert_array_equal(tr.numpy(), np.arange(64) % 2 == 0)
     assert penv.params.max_steps == 1 << 30
+
+
+@pytest.mark.parametrize("done_actions", [False, True])
+@pytest.mark.parametrize("level", ["BabyAI-GoToObj-v0",
+                                   "BabyAI-PutNextLocal-v0",
+                                   "BabyAI-SynthSeq-v0",
+                                   "BabyAI-PickupDistDebug-v0"])
+def test_post_step_on_cpu_is_the_plain_verifier(level, done_actions,
+                                                monkeypatch):
+    """On CPU tensors a level's ``_post_step`` runs the plain version
+    (``babyai_post_step_reference``) in the done-action mode set, never the
+    kernel's wrapper, and launches nothing (``kernel.verify_launches`` reads
+    0); it writes no input in place, and every state it writes is one the
+    kernel takes: its inputs pass the kernel's dtype, shape and contiguity
+    checks at each of 12 steps."""
+    monkeypatch.setattr(L, "USE_DONE_ACTIONS", done_actions)
+    plain, modes = PS.babyai_post_step_reference, []
+
+    def counted(*a):
+        modes.append(a[-1])
+        return plain(*a)
+
+    def kernel(*a):
+        raise AssertionError("the kernel's wrapper ran on CPU tensors")
+
+    monkeypatch.setattr(PS, "babyai_post_step_reference", counted)
+    monkeypatch.setattr(PS, "_babyai_post_step_cuda", kernel)
+    monkeypatch.setattr(PS, "_CHECKED", set())
+    penv, st = port_levels(level)
+    B, W, H = st.batch_size, penv.params.width, penv.params.height
+    acts = action_stream("interact" if not done_actions else "uniform", 12,
+                         B, seed=5)
+    ended = 0
+    for t in range(12):
+        a = torch.from_numpy(acts[t])
+        new, _, reward, term, _ = fused_rollout(penv.params, st, a[None])
+        inputs = PS._inputs(st, new, a, reward[0], term[0])
+        PS._CHECKED.clear()
+        PS._check_inputs(inputs, B, W, H, torch.device("cpu"))
+        before = [x.clone() for x in inputs]
+        got, _, got_te = penv._post_step(st, new, a, reward[0], term[0])
+        for x, y in zip(inputs, before):
+            assert torch.equal(x, y), t
+        ended += int((got_te & ~term[0]).sum())
+        st = got.replace(terminated=got_te)
+    assert modes == [done_actions] * 12
+    # a put-next seldom succeeds in 12 steps and never fails unstrict
+    assert ended > 0 or (level, done_actions) == ("BabyAI-PutNextLocal-v0",
+                                                  False)
+    assert trace.counters()["kernel.verify_launches"] == 0
+
+
+def test_post_step_routes_by_device_and_checks_the_kernel_inputs(
+        monkeypatch):
+    """``babyai_post_step`` takes CPU or CUDA tensors only; the kernel's
+    input checks (dtype, shape and device once per shape, contiguity
+    every call, the packed width) hold on the CPU, and its pointer table
+    is the inputs and its six outputs."""
+    penv, st = port_levels("BabyAI-PutNextLocal-v0")
+    a = torch.zeros(st.batch_size, dtype=torch.int32)
+    new, _, reward, term, _ = fused_rollout(penv.params, st, a[None])
+    args = [st, new, a, reward[0], term[0]]
+    meta = [x.map(lambda t: t.to("meta")) for x in args[:2]] + [
+        x.to("meta") for x in args[2:]]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        PS.babyai_post_step(penv.params, *meta, False)
+    B, W, H = st.batch_size, penv.params.width, penv.params.height
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(PS, "_CHECKED", set())
+    PS._check_inputs(PS._inputs(*args), B, W, H, cpu)
+    assert PS._CHECKED == {(B, W, H, cpu)}
+    bad = st.replace(extra={**st.extra, "max_steps":
+                            st.extra["max_steps"].long()})
+    monkeypatch.setattr(PS, "_CHECKED", set())
+    with pytest.raises(ValueError, match="max_steps must be torch.int32"):
+        PS._check_inputs(PS._inputs(bad, *args[1:]), B, W, H, cpu)
+    with pytest.raises(ValueError, match="packed widths"):
+        PS._check_inputs(PS._inputs(*args), B, 25, H, cpu)
+    strided = st.replace(agent_pos=st.agent_pos.t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        PS._check_inputs(PS._inputs(strided, *args[1:]), B, W, H, cpu)
+    src = PS.SOURCE.read_text()
+    assert f"kPointers = {len(PS._specs(B, W, H)) + 6};" in src
 
 
 def test_levels_route_through_the_hook_path():

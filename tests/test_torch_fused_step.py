@@ -219,6 +219,37 @@ def test_shared_memory_and_build_flags():
     assert F.SOURCE.exists()
 
 
+def test_build_compiles_the_sources_it_is_given(tmp_path, monkeypatch):
+    """``build(sources)`` compiles every source into one library named after
+    the first, under BUILD_DIR, with the fused step's flags; it compiles
+    once per sources and flags, again after an edit (a stand-in compiler
+    here, which writes its arguments to the library)."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nout=""; prev=""\nfor a in "$@"; do\n'
+                    '  [ "$prev" = "-o" ] && out="$a"; prev="$a"\ndone\n'
+                    'echo "$@" > "$out"\necho "ptxas info: Used 9 '
+                    'registers"\n')
+    nvcc.chmod(0o755)
+    calls = []
+    monkeypatch.setattr(F, "_nvcc", lambda: calls.append(1) or str(nvcc))
+    monkeypatch.setattr(F, "BUILD_DIR", tmp_path / "build")
+    a, b = tmp_path / "first.cu", tmp_path / "second.cu"
+    a.write_text("// a")
+    b.write_text("// b")
+    lib, log = F.build((a, b))
+    assert lib.parent == tmp_path / "build"
+    assert lib.name.startswith("libfirst_") and lib.suffix == ".so"
+    args = lib.read_text().split()
+    assert args[-2:] == [str(a), str(b)]
+    assert args[:len(F.NVCC_FLAGS)] == F.NVCC_FLAGS
+    assert "Used 9 registers" in log
+    assert F.build((a, b)) == (lib, "") and len(calls) == 1
+    b.write_text("// b, edited")
+    edited, _ = F.build((a, b))
+    assert edited != lib and len(calls) == 2
+    assert F.build.__defaults__ == ((F.SOURCE,),)
+
+
 @pytest.mark.parametrize("group_lanes", [None, *F.GROUP_LANES])
 def test_launch_geometry_fits_every_env_and_view(group_lanes):
     """Every registered env at every odd view size 3..63: a valid block

@@ -1,6 +1,7 @@
 """The CUDA fused step kernel and its observe entry against their plain
-PyTorch versions on the card, bit-exact on every output, the recurrent
-policy's forward card against CPU, and the WFC solver card against CPU.
+PyTorch versions on the card, bit-exact on every output, the BabyAI
+post-step kernel against its plain version, the recurrent policy's forward
+card against CPU, and the WFC solver card against CPU.
 Marked ``gpu``: they skip without a CUDA device. The file imports no JAX,
 so it also runs where only PyTorch is installed (``pytest
 tests/test_torch_kernel_gpu.py -m gpu --noconftest``)."""
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 import minigrid_tpu_torch
+from minigrid_tpu_torch.envs.babyai.core import level as L
+from minigrid_tpu_torch.envs.babyai.core import post_step as PS
 from minigrid_tpu_torch.envs.base import random_keys
 from minigrid_tpu_torch.ops.fused_step import (GROUP_LANES, KERNEL,
                                                _fused_observe_cuda,
@@ -452,3 +455,73 @@ def test_wfc_solver_on_card_matches_cpu(cuda_device, preset, options):
     st_c = cpu_env.layout(cpu_env.generator(1), grid_c)
     assert torch.equal(st.grid.cpu()[..., 0] == C.WALL,
                        st_c.grid[..., 0] == C.WALL)
+
+
+# tests/test_torch_babyai.py's STEP_LEVELS: every root kind and leaf kind,
+# strict failures and a carried start
+VERIFY_LEVELS = ["BabyAI-GoToObj-v0", "BabyAI-OpenDoorsOrderN4-v0",
+                 "BabyAI-PutNextLocal-v0", "BabyAI-GoToSeq-v0",
+                 "BabyAI-SynthSeq-v0", "BabyAI-PickupDistDebug-v0",
+                 "BabyAI-PutNextS5N2Carrying-v0"]
+_LEVEL_BATCHES: dict = {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("done_actions", [False, True])
+@pytest.mark.parametrize("B", [4096, 1000])
+@pytest.mark.parametrize("env_id", VERIFY_LEVELS)
+def test_babyai_post_step_kernel_matches_plain_on_card(
+        cuda_device, env_id, B, done_actions, monkeypatch):
+    """64 uniform then 64 interaction-biased pooled steps of a level on the
+    card, each post-step computed by the kernel and by its plain version
+    (``I.verify`` and the reward arithmetic) on the same CUDA inputs:
+    status, reward (its bits), terminated, truncated and every InstrState
+    field equal; the inputs unchanged after the launch; one kernel launch
+    a step; episodes ending by the verifier and by the budget."""
+    monkeypatch.setattr(L, "USE_DONE_ACTIONS", done_actions)
+    env = minigrid_tpu_torch.make(env_id, device=cuda_device).packed()
+    if (env_id, B) not in _LEVEL_BATCHES:
+        g = env.generator(7)
+        _LEVEL_BATCHES[env_id, B] = env.reset(g, B)[1], env.make_pool(g, 16)
+    st, pool = _LEVEL_BATCHES[env_id, B]
+    ms = st.extra["max_steps"]
+    st = st.replace(step_count=(ms - 1 - torch.arange(B, device=cuda_device)
+                                % ms).to(torch.int32))
+    kernel = PS._babyai_post_step_cuda
+    ended = [0, 0]
+
+    def checked(params, prev, new, action, reward, terminated, mode):
+        inputs = PS._inputs(prev, new, action, reward, terminated)
+        before = [t.clone() for t in inputs]
+        got = kernel(params, prev, new, action, reward, terminated, mode)
+        want = PS.babyai_post_step_reference(params, prev, new, action,
+                                             reward, terminated, mode)
+        assert mode == done_actions
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[2].view(torch.int32),
+                           want[2].view(torch.int32))
+        assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+        for k, v in want[1].items():
+            assert torch.equal(got[1].get(k, prev.extra[k]), v), k
+        for t, c in zip(inputs, before):
+            assert torch.equal(t, c)
+        ended[0] += int((got[0] != 0).sum())
+        ended[1] += int(got[4].sum())
+        return got
+
+    monkeypatch.setattr(PS, "_babyai_post_step_cuda", checked)
+    g = env.generator(8)
+    launches = PS.POST_STEP.verify_launches
+    T = 64
+    for t in range(2 * T):
+        keys = random_keys(g, (B, 2), cuda_device)
+        if t < T:
+            a = torch.randint(0, 7, (B,), generator=g, device=cuda_device)
+        else:
+            a = torch.from_numpy(INTERACT).to(cuda_device)[torch.randint(
+                0, len(INTERACT), (B,), generator=g, device=cuda_device)]
+        st = env.step_autoreset_presampled(keys, st, a.to(torch.int32),
+                                           pool.rows(t % 16))[1]
+    torch.cuda.synchronize()
+    assert PS.POST_STEP.verify_launches - launches == 2 * T
+    assert ended[0] > 0 and ended[1] > 0, ended

@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 import minigrid_tpu_torch as mt
 from minigrid_tpu_torch import wrappers as W
 from minigrid_tpu_torch.core import roomgrid
+from minigrid_tpu_torch.envs.babyai.core.post_step import POST_STEP
 from minigrid_tpu_torch.envs.base import random_keys
 from minigrid_tpu_torch.envs.wfc import solver
 from minigrid_tpu_torch.models import ppo as PPO
@@ -195,5 +196,6 @@ def test_counters_are_the_counter_objects_fields():
     want |= {f"kernel.{k}": getattr(KERNEL, k)
              for k in ("launches", "observe_launches", "wide_launches",
                        "wide_observe_launches")}
+    want["kernel.verify_launches"] = POST_STEP.verify_launches
     assert got == want
     assert got["gen.host_syncs"] > 0  # PutNextLocal's generator syncs
