@@ -46,16 +46,21 @@ class GenCounters:
     """What the batched generation loops did since the last
     :meth:`reset`: host syncs (one per loop round), the most draws any env
     used in :func:`connect_all`, and the level generator's attempts (the
-    most any env took) and envs left without a valid level."""
+    most any env took) and envs left without a valid level; ``levels``
+    counts the levels asked of a BabyAI level's ``generate`` and
+    ``attempts`` the env-attempts it made, first tries included."""
 
     host_syncs: int = 0
     connect_draws_max: int = 0
     attempts_max: int = 0
     not_ok: int = 0
+    levels: int = 0
+    attempts: int = 0
 
     def reset(self):
         self.host_syncs = self.connect_draws_max = 0
         self.attempts_max = self.not_ok = 0
+        self.levels = self.attempts = 0
 
 
 COUNTERS = GenCounters()

@@ -30,6 +30,7 @@ from minigrid_tpu_torch.core import roomgrid as RG
 from minigrid_tpu_torch.envs.babyai.core import instrs as I
 from minigrid_tpu_torch.envs.babyai.core.post_step import babyai_post_step
 from minigrid_tpu_torch.envs.roomgrid_base import RoomGridEnv
+from minigrid_tpu_torch.utils import trace
 
 # BABYAI_DONE_ACTIONS switches to explicit-done verification
 # (verifier.py:24-26), read at import as the reference and the JAX package
@@ -96,6 +97,7 @@ def after_instr(part_a, part_b):
 # Builder helpers of BabyAI
 # ---------------------------------------------------------------------------
 
+@trace.spanned("gen.validate")
 def check_objs_reachable(b: RG.Builder) -> torch.Tensor:
     """(B,) bool: every object reachable from the agent without moving
     another (roomgrid_level.py:250-302). A flood through empty cells and
@@ -249,15 +251,22 @@ class RoomGridLevel(RoomGridEnv):
         return I.num_navs_needed(instr) * nav_time_maze
 
     def _attempt(self, generator, num_envs: int):
-        """One generation attempt for every env: (states, ok)."""
-        b = self.builder(generator, num_envs)
+        """One generation attempt for every env: (states, ok). Spans: the
+        builder under ``gen.layout``; the descriptors' matches, the budgets
+        and the surface tokens under ``gen.instr``; the validation under
+        ``gen.validate`` (a level's ``gen_mission`` opens its own)."""
+        with trace.span("gen.layout"):
+            b = self.builder(generator, num_envs)
         b, spec, gen_ok = self.gen_mission(generator, b)
-        instr = self._instr_from_spec(spec, b)
-        ok = RG.per_env(gen_ok, num_envs, self.device, torch.bool) \
-            & self._validate(b, instr)
-        extra = {**instr.to_extra(), "max_steps": self._max_steps_value(instr)}
-        state = self.finish(generator, b, mission=I.surface_tokens(instr),
-                            extra=extra)
+        with trace.span("gen.instr"):
+            instr = self._instr_from_spec(spec, b)
+            extra = {**instr.to_extra(),
+                     "max_steps": self._max_steps_value(instr)}
+            mission = I.surface_tokens(instr)
+        with trace.span("gen.validate"):
+            ok = RG.per_env(gen_ok, num_envs, self.device, torch.bool) \
+                & self._validate(b, instr)
+        state = self.finish(generator, b, mission=mission, extra=extra)
         return self._finalize_state(state, spec), ok
 
     def generate(self, generator, num_envs: int):
@@ -265,11 +274,14 @@ class RoomGridLevel(RoomGridEnv):
         the attempts each took (at most ``1 + max_gen_attempts``)."""
         state, ok = self._attempt(generator, num_envs)
         attempts = torch.ones(num_envs, dtype=torch.int32, device=self.device)
+        RG.COUNTERS.levels += num_envs
+        RG.COUNTERS.attempts += num_envs
         for _ in range(self.max_gen_attempts):
             RG.COUNTERS.host_syncs += 1
             todo = torch.nonzero(~ok)[:, 0]
             if todo.numel() == 0:
                 break
+            RG.COUNTERS.attempts += todo.numel()
             sub, sub_ok = self._attempt(generator, todo.numel())
             state = state.with_tensors({
                 k: v.index_copy(0, todo, sub.tensors()[k])

@@ -13,6 +13,7 @@ from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import roomgrid as RG
 from minigrid_tpu_torch.envs.babyai.core import instrs as I
 from minigrid_tpu_torch.envs.babyai.core import level as L
+from minigrid_tpu_torch.utils import trace
 
 ALL_TYPES = (0, 1, 2, 3)       # box, ball, key, door (I.OBJ_TYPES order)
 NOT_DOOR = (0, 1, 2)
@@ -160,8 +161,23 @@ class LevelGen(L.RoomGridLevel):
         return L.leaf(kind, d_move, fixed), ok
 
     def gen_mission(self, generator, b):
+        """The layout (span ``gen.layout``), the reachability check where
+        unblocking is off (``gen.validate``) and the instruction's leaves
+        and tree (``gen.instr``)."""
+        with trace.span("gen.layout"):
+            b, locked_rect = self._layout(generator, b)
+        ok = torch.ones(b.batch_size, dtype=torch.bool, device=b.device)
+        if not self.unblocking:
+            ok &= L.check_objs_reachable(b)
+        with trace.span("gen.instr"):
+            spec, ok = self._instr_spec(generator, b, ok, locked_rect)
+        return b, spec, ok
+
+    def _layout(self, generator, b):
+        """The locked room, the doors, the distractors and the agent
+        (levelgen.py:60-75): (builder, the locked room's (B, W, H) mask,
+        empty where none)."""
         Lt, B, dev = self.layout, b.batch_size, b.device
-        ok = torch.ones(B, dtype=torch.bool, device=dev)
         no_room = torch.full((B,), -1, dtype=torch.int64, device=dev)
 
         # an optional locked room (levelgen.py:60-61)
@@ -188,10 +204,11 @@ class LevelGen(L.RoomGridLevel):
         flat = RG.categorical(generator, valid)
         b = RG.place_agent(b, Lt, generator, flat % Lt.num_cols,
                            flat // Lt.num_cols)
-        if not self.unblocking:
-            ok &= L.check_objs_reachable(b)
+        return b, locked_rect
 
-        # the instruction's structure (levelgen.py:158-211)
+    def _instr_spec(self, generator, b, ok, locked_rect):
+        """The instruction's structure (levelgen.py:158-211): (spec, ok)."""
+        B, dev = b.batch_size, b.device
         names = list(self.instr_kinds)
         ik = RG.randint(generator, 0, len(names), B, dev)
         is_action = torch.as_tensor([n == "action" for n in names],
@@ -217,4 +234,4 @@ class LevelGen(L.RoomGridLevel):
                 "leaves": [lv[0], gate(lv[1], a_is_and),
                            gate(lv[2], ~is_action & ~is_and),
                            gate(lv[3], b_is_and)]}
-        return b, spec, ok
+        return spec, ok

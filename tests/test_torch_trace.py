@@ -37,7 +37,10 @@ TREE = {("train_step", None), ("rollout", "train_step"),
         ("env.kernel", "env.step"), ("env.select", "env.step"),
         ("update", "train_step")}
 # and in a fresh BabyAI step: the verifier's hooks, the buffer's generation
-FRESH_HOOKED = {("env.hooks", "env.step"), ("gen", "rollout")}
+# and its stages
+FRESH_HOOKED = {("env.hooks", "env.step"), ("gen", "rollout"),
+                ("gen.layout", "gen"), ("gen.instr", "gen"),
+                ("gen.validate", "gen")}
 
 
 class Loop:
