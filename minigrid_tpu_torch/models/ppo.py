@@ -19,7 +19,9 @@ as they are, and no mission counts are carried (a wrapper may change the
 mission).
 
 On the card every env step is one launch of the fused CUDA kernel, and the
-fresh and regen modes add one launch of its observe entry per step. The
+fresh and regen modes add one launch of its observe entry per step; a
+feed-forward policy's step on the native observation dict is one replay of
+a CUDA graph (``models/policy_step.py``). The
 update is GAE, then ``num_epochs`` passes over ``num_minibatches``
 minibatches of the clipped-surrogate loss, each followed by optax's global
 clip-norm rule and Adam. ``make_train_step`` returns
@@ -60,8 +62,10 @@ import torch.distributed as dist
 
 from minigrid_tpu_torch.envs.base import (LayoutPool, presample_reset_states,
                                           random_keys)
-from minigrid_tpu_torch.models.actor_critic import (encode_obs,
-                                                    mission_counts)
+from minigrid_tpu_torch.models.actor_critic import mission_counts
+from minigrid_tpu_torch.models.policy_step import (POLICY, act,
+                                                   graphed_policy,
+                                                   selected_log_prob)
 from minigrid_tpu_torch.utils import trace
 from minigrid_tpu_torch.wrappers import ReseedWrapper, Wrapper
 
@@ -108,12 +112,6 @@ class Transition(NamedTuple):
 
 def is_recurrent(model) -> bool:
     return bool(getattr(model, "is_recurrent", False))
-
-
-def _selected_log_prob(log_probs, action):
-    """log_probs[..., action]."""
-    return torch.gather(log_probs, -1,
-                        action[..., None].to(torch.int64)).squeeze(-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,8 +241,8 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
     # each step's tokens are counted
     carry = (resets == "pooled" and std_obs and "mission" in obs
              and not isinstance(env, Wrapper))
+    counts = mission_counts(obs["mission"]) if carry else None
     if carry:
-        counts = mission_counts(obs["mission"])
         reset_counts = mission_counts(noise.reset_rows.mission)   # (T, VOCAB)
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if resets == "fresh":
@@ -258,25 +256,32 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
     if recurrent and h is None:
         raise ValueError("a recurrent policy's rollout needs its hidden "
                          "state h")
-    steps = []
+
+    def policy_inputs(obs, counts):
+        """The policy step's input: the observation, in the pooled mode with
+        the carried mission counts in place of the tokens."""
+        if carry:
+            return {view_key: obs[view_key], "mission_counts": counts,
+                    "direction": obs["direction"]}
+        return obs
+
+    # on the card a feed-forward policy's step is one graph replay
+    graphed = (graphed_policy(model, policy_inputs(obs, counts), noise.gumbel)
+               if std_obs and not recurrent else None)
+    policy_out, rewards, dones = [], [], []
     for t in range(T):
         with trace.span("policy"):
-            if carry:
-                enc = encode_obs({view_key: obs[view_key],
-                                  "mission_counts": counts,
-                                  "direction": obs["direction"]})
-            elif std_obs:
-                enc = encode_obs(obs)
+            inputs = policy_inputs(obs, counts)
+            if graphed is not None:
+                action = graphed.step(inputs)
             else:
-                enc = obs
-            if recurrent:
+                POLICY.eager_steps += 1
                 h_in = h
-                (logits, value), h = model(enc, h)
-            else:
-                logits, value = model(enc)
-            action = torch.argmax(logits + noise.gumbel[t], dim=-1)
-            log_prob = _selected_log_prob(torch.log_softmax(logits, -1),
-                                          action)
+                enc, action, log_prob, value, h = act(
+                    model, inputs, noise.gumbel[t], std_obs,
+                    h if recurrent else None)
+                policy_out.append((enc, action.to(torch.int32), log_prob,
+                                   value, h_in))
         keys = noise.step_keys[t]
         if resets == "pooled":
             obs, env_state, reward, term, trunc, _ = \
@@ -299,16 +304,22 @@ def rollout(model, env, env_state, obs: dict, noise: RolloutNoise,
         if recurrent:
             # the next step's forward starts a new episode from h = 0
             h = h * (1.0 - done[:, None].to(h.dtype))
-        steps.append(Transition(enc, action.to(torch.int32), log_prob, value,
-                                reward, done, h_in if recurrent else None))
-    if isinstance(steps[0].obs, dict):
-        traj_obs = {k: torch.stack([s.obs[k] for s in steps])
-                    for k in steps[0].obs}
+        rewards.append(reward)
+        dones.append(done)
+    if graphed is not None:
+        traj_obs, action, log_prob, value = graphed.trajectory()
+        hidden = None
     else:
-        traj_obs = torch.stack([s.obs for s in steps])
-    traj = Transition(traj_obs, *(
-        torch.stack(f) if f[0] is not None else None
-        for f in list(zip(*steps))[1:]))
+        encs, action, log_prob, value, hidden = zip(*policy_out)
+        if isinstance(encs[0], dict):
+            traj_obs = {k: torch.stack([e[k] for e in encs]) for k in encs[0]}
+        else:
+            traj_obs = torch.stack(encs)
+        action, log_prob, value = (torch.stack(f)
+                                   for f in (action, log_prob, value))
+        hidden = torch.stack(hidden) if recurrent else None
+    traj = Transition(traj_obs, action, log_prob, value,
+                      torch.stack(rewards), torch.stack(dones), hidden)
     if recurrent:
         return env_state, obs, traj, overflow, h
     return env_state, obs, traj, overflow
@@ -371,7 +382,7 @@ def ppo_loss(model, cfg: PPOConfig, mb: dict, mesh=None):
     else:
         logits, value = model(policy_input(mb))
     log_probs = torch.log_softmax(logits, -1)
-    lp = _selected_log_prob(log_probs, mb["action"])
+    lp = selected_log_prob(log_probs, mb["action"])
     ratio = torch.exp(lp - mb["log_prob"])
     adv = mb["adv"]
     if mesh is None:

@@ -20,7 +20,8 @@ The spans, by name (``mg.`` prefixed in the profiler):
 - ``train_step``: one train step (``models/ppo.py::make_train_step``);
 - ``rollout``: the rollout (``models/ppo.py::rollout``);
 - ``policy``: a rollout step's observation encoding, forward, Gumbel argmax
-  and log-probability;
+  and log-probability (on the card, mostly one CUDA graph replay:
+  ``models/policy_step.py``);
 - ``env.step``: one auto-resetting step at an env's or a wrapper stack's
   ``step_autoreset``, ``step_autoreset_presampled`` or
   ``step_autoreset_fresh``;
@@ -196,15 +197,19 @@ def counters() -> dict:
     WFC solver's (``envs/wfc/solver.py::COUNTERS``) and ``kernel.*`` the
     launch counts of the fused kernel (``ops/fused_step.py::KERNEL``) and
     of the BabyAI post-step kernel (``envs/babyai/core/post_step.py::
-    POST_STEP``)."""
+    POST_STEP``), ``policy.*`` how the rollout's policy steps ran
+    (``models/policy_step.py::POLICY``: graph captures, graph replays,
+    eager steps)."""
     # imported here: the env and kernel modules import this one
     from minigrid_tpu_torch.core import roomgrid
     from minigrid_tpu_torch.envs.babyai.core.post_step import POST_STEP
     from minigrid_tpu_torch.envs.wfc import solver
+    from minigrid_tpu_torch.models.policy_step import POLICY
     from minigrid_tpu_torch.ops.fused_step import KERNEL
 
     out = {}
-    for prefix, obj in (("gen", roomgrid.COUNTERS), ("wfc", solver.COUNTERS)):
+    for prefix, obj in (("gen", roomgrid.COUNTERS), ("wfc", solver.COUNTERS),
+                        ("policy", POLICY)):
         out.update({f"{prefix}.{f.name}": getattr(obj, f.name)
                     for f in dataclasses.fields(obj)})
     out.update({f"kernel.{k}": getattr(KERNEL, k) for k in KERNEL.COUNTS})

@@ -6,7 +6,8 @@ sweep of the kernel's group width G.
 
     python3 port_probes/rollout_profile.py [--steps 16] [--train-only]
                                            [--sweep-only]
-                                           [--span-split [--seed N]]
+                                           [--span-split [--seed N]
+                                            [--cell NAME]]
 
 Prints the card, the host time per rollout step, the device busy share
 (union of kernel intervals over the profiled wall time), the top device
@@ -38,6 +39,10 @@ bf16 ``ActorCritic(256)``, staggered and buffered by
 and the BabyAI post-step kernel's launches against the level's
 ``_post_step`` calls, as one JSON line; it needs nothing newer than the
 program's spans, so a copy of this file splits an older checkout's step.
+With ``--cell NAME`` it splits the train step of the benchmark's cell
+``NAME`` instead (``port_bench/``'s driver builds it from ``--seed``, its
+checked steps are the warm-up), and adds the moves of the program's
+``policy.*`` counters where it has them.
 """
 
 from __future__ import annotations
@@ -358,6 +363,51 @@ def span_split(card: str, steps: int, seed: int) -> dict:
             "hooks_host_us_a_call": 1e3 * hooks["ms"] / hooks["calls"]}
 
 
+def cell_span_split(card: str, cell: str, steps: int, seed: int) -> dict:
+    """The host split of a train step of the benchmark's cell ``cell`` by
+    the program's spans, after the cell's own set-up."""
+    import torch
+
+    from minigrid_tpu_torch.utils import trace
+
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root / "port_bench"))
+    from harness.manifest import Bench
+    from harness.runner import Run, pin_caches
+
+    pin_caches(root)
+    bench = Bench(root)
+    entry = bench.cell(cell)
+    run = Run(bench=bench, cell=entry, seed=seed, seconds=0.0, trace=False,
+              device="cuda", t_start=time.perf_counter())
+    loop = bench.driver(entry["driver"]).make(run)
+    loop.setup()
+    torch.cuda.synchronize()
+    before = trace.counters()
+    trace.clear()
+    trace.enable()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loop.st, loop.obs, _ = loop.step(loop.st, loop.obs, loop.g,
+                                         loop.pool)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    trace.disable()
+    summary = trace.summary()
+    trace.clear()
+    after = trace.counters()
+    return {"card": card, "cell": cell, "seed": seed, "steps": steps,
+            "step_ms": sorted(1e3 * t for t in times),
+            "spans_ms_a_step": {k: {"calls": v["calls"] / steps,
+                                    "ms": v["ms"] / steps,
+                                    "self_ms": v["self_ms"] / steps}
+                                for k, v in summary.items()},
+            "counters_a_step": {k: (after[k] - before.get(k, 0)) / steps
+                                for k in after
+                                if k.startswith(("policy.", "gen.levels"))}}
+
+
 def main() -> int:
     import torch
 
@@ -368,6 +418,7 @@ def main() -> int:
     ap.add_argument("--sweep-only", action="store_true")
     ap.add_argument("--span-split", action="store_true")
     ap.add_argument("--seed", type=int, default=2718281829)
+    ap.add_argument("--cell", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -380,7 +431,9 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
     if args.span_split:
-        print(json.dumps(span_split(card, args.steps, args.seed)))
+        print(json.dumps(
+            span_split(card, args.steps, args.seed) if args.cell is None
+            else cell_span_split(card, args.cell, args.steps, args.seed)))
         return 0
     env = mt.make("MiniGrid-DoorKey-8x8-v0", device="cuda").packed()
     g = env.generator(0)

@@ -1,12 +1,16 @@
 """The CUDA fused step kernel and its observe entry against their plain
 PyTorch versions on the card, bit-exact on every output, the BabyAI
 post-step kernel against its plain version, the recurrent policy's forward
-card against CPU, and the WFC solver card against CPU.
+card against CPU, the WFC solver card against CPU, and the rollout's policy
+step as a CUDA graph replay against its eager run.
 Marked ``gpu``: they skip without a CUDA device. The file imports no JAX,
 so it also runs where only PyTorch is installed (``pytest
 tests/test_torch_kernel_gpu.py -m gpu --noconftest``)."""
 
 from __future__ import annotations
+
+import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -16,6 +20,13 @@ import minigrid_tpu_torch
 from minigrid_tpu_torch.envs.babyai.core import level as L
 from minigrid_tpu_torch.envs.babyai.core import post_step as PS
 from minigrid_tpu_torch.envs.base import random_keys
+from minigrid_tpu_torch.models import ppo as P
+from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
+                                                    ActorCriticRNN,
+                                                    init_params,
+                                                    init_params_rnn)
+from minigrid_tpu_torch.models import policy_step as PST
+from minigrid_tpu_torch.models.policy_step import POLICY
 from minigrid_tpu_torch.ops.fused_step import (GROUP_LANES, KERNEL,
                                                _fused_observe_cuda,
                                                _fused_rollout_cuda,
@@ -525,3 +536,146 @@ def test_babyai_post_step_kernel_matches_plain_on_card(
     torch.cuda.synchronize()
     assert PS.POST_STEP.verify_launches - launches == 2 * T
     assert ended[0] > 0 and ended[1] > 0, ended
+
+
+# (env id, reset mode) of the graphed rollout's cases: the benchmark's
+# pooled DoorKey and fresh PutNextLocal cells
+GRAPH_CASES = [("MiniGrid-DoorKey-8x8-v0", "pooled"),
+               ("BabyAI-PutNextLocal-v0", "fresh")]
+
+
+def _rollout_case(device, env_id, resets, B=4096, seed=0):
+    """(env, generator, bf16 ActorCritic(256), pool, state, obs, fresh
+    buffer rows) as the benchmark's cells build them."""
+    env = minigrid_tpu_torch.make(env_id, device=device).packed()
+    g = env.generator(seed)
+    model = init_params(ActorCritic(device=device), g)
+    pool = env.make_pool(g, 1024) if resets == "pooled" else None
+    obs, st = env.reset_staggered(g, B)
+    n_buf = int(B * 1.3) + 256 if resets == "fresh" else None
+    return env, g, model, pool, st, obs, n_buf
+
+
+def _ran(before: dict) -> dict:
+    return {k: getattr(POLICY, k) - v for k, v in before.items()}
+
+
+def _graphed_and_eager(monkeypatch, model, env, st, obs, g, pool, resets,
+                       n_buf, T=128):
+    """One rollout as the program runs it and the same rollout (state,
+    noise, generator) with every policy step eager; returns both outputs
+    and the counters' moves in the first."""
+    noise = P.sample_rollout_noise(g, pool, st.batch_size, T,
+                                   model.num_actions, device=st.device)
+    start = g.get_state()
+    before = dataclasses.asdict(POLICY)
+    graphed = P.rollout(model, env, st.map(torch.clone), dict(obs), noise,
+                        resets, g, n_buf)
+    torch.cuda.synchronize()
+    ran = _ran(before)
+    g.set_state(start)
+    with monkeypatch.context() as m:
+        m.setattr(P, "graphed_policy", lambda *a: None)
+        eager = P.rollout(model, env, st.map(torch.clone), dict(obs), noise,
+                          resets, g, n_buf)
+    return graphed, eager, ran
+
+
+def _assert_same_rollout(got, want):
+    (st, obs, traj, over), (st2, obs2, traj2, over2) = got, want
+    for k in P.OBS_KEYS:
+        assert torch.equal(traj.obs[k], traj2.obs[k]), k
+    for k in ("action", "log_prob", "value", "reward", "done"):
+        a, b = getattr(traj, k), getattr(traj2, k)
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    assert traj.hidden is None and torch.equal(over, over2)
+    for k in obs:
+        assert torch.equal(obs[k], obs2[k]), k
+    for k, v in st2.tensors().items():
+        assert torch.equal(st.tensors()[k], v), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id,resets", GRAPH_CASES)
+def test_graphed_rollout_equals_eager_on_card(cuda_device, monkeypatch,
+                                              env_id, resets):
+    """At B=4096, T=128 the graphed rollout equals the eager one bit for
+    bit (encodings, actions, log-probs, values, env results), one replay a
+    step; after an Adam step the next rollout replays the same graph on
+    the new weights and still equals the eager one; a ``load_state_dict``
+    that reallocates the parameters, and a new batch, capture again; a
+    dropped model frees its graph."""
+    env, g, model, pool, st, obs, n_buf = _rollout_case(cuda_device, env_id,
+                                                        resets)
+    got, want, ran = _graphed_and_eager(monkeypatch, model, env, st, obs, g,
+                                        pool, resets, n_buf)
+    assert ran == {"graph_captures": 1, "graph_replays": 128,
+                   "eager_steps": 0}
+    _assert_same_rollout(got, want)
+
+    opt = P.make_optimizer(model, P.PPOConfig())
+    logits, value = model({k: v[0] for k, v in got[2].obs.items()})
+    (logits.square().mean() + value.square().mean()).backward()
+    weights = model.trunk1.weight.detach().clone()
+    opt.step()
+    assert not torch.equal(weights, model.trunk1.weight)
+    st, obs = got[0], got[1]
+    got, want, ran = _graphed_and_eager(monkeypatch, model, env, st, obs, g,
+                                        pool, resets, n_buf)
+    assert ran == {"graph_captures": 0, "graph_replays": 128,
+                   "eager_steps": 0}
+    _assert_same_rollout(got, want)
+
+    model.load_state_dict({k: v.clone() for k, v in
+                           model.state_dict().items()}, assign=True)
+    recaptured = {"graph_captures": 1, "graph_replays": 128,
+                  "eager_steps": 0}
+    got, want, ran = _graphed_and_eager(monkeypatch, model, env, got[0],
+                                        got[1], g, pool, resets, n_buf)
+    assert ran == recaptured
+    _assert_same_rollout(got, want)
+    _, g, _, pool, st, obs, n_buf = _rollout_case(cuda_device, env_id,
+                                                  resets, B=1000, seed=1)
+    got, want, ran = _graphed_and_eager(monkeypatch, model, env, st, obs, g,
+                                        pool, resets, n_buf)
+    assert ran == recaptured
+    _assert_same_rollout(got, want)
+    graphs = len(PST._GRAPHS)
+    del model, opt
+    gc.collect()
+    assert len(PST._GRAPHS) == graphs - 1
+
+
+class _Replicated:
+    """A tensor-parallel marker over one rank: gathering is the identity."""
+
+    @staticmethod
+    def gather(x):
+        return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["recurrent", "tensor_parallel"])
+def test_policy_steps_eager_where_the_graph_does_not_apply(cuda_device,
+                                                           kind):
+    """A recurrent policy and a model with a tensor-parallel parameter step
+    eagerly on the card: T eager steps, no capture, no replay."""
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0",
+                                  device=cuda_device).packed()
+    g = env.generator(0)
+    pool = env.make_pool(g, 64)
+    obs, st = env.reset_staggered(g, 1024)
+    h = None
+    if kind == "recurrent":
+        model = init_params_rnn(ActorCriticRNN(device=cuda_device), g)
+        h = model.initial_state(1024)
+    else:
+        model = init_params(ActorCritic(device=cuda_device), g)
+        model.mission_embed.tensor_parallel = _Replicated()
+    noise = P.sample_rollout_noise(g, pool, 1024, 16, model.num_actions)
+    before = dataclasses.asdict(POLICY)
+    out = P.rollout(model, env, st, obs, noise, h=h)
+    torch.cuda.synchronize()
+    assert _ran(before) == {"graph_captures": 0, "graph_replays": 0,
+                            "eager_steps": 16}
+    assert out[2].action.shape == (16, 1024)

@@ -35,8 +35,10 @@ from minigrid_tpu_torch.convert import (actor_critic_from_flax,
                                         adam_state_from_optax)
 from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
                                                     ActorCriticRNN,
-                                                    init_params)
+                                                    encode_obs, init_params,
+                                                    mission_counts)
 from minigrid_tpu_torch.models import ppo as P
+from minigrid_tpu_torch.models.policy_step import POLICY
 
 from tests.torch_port_utils import (share_cpu,  # noqa: F401
                                     CPU, jax_train_step_closures)
@@ -283,3 +285,94 @@ def test_train_step_refusals():
     with pytest.raises(ValueError, match="rotate"):
         P.make_train_step(env, rnn, dataclasses.replace(
             cfg, shuffle="timestep"), P.make_optimizer(rnn, cfg))
+
+
+def _eager_rollout(model, env, st, obs, noise, resets, g, n_buf):
+    """The rollout as a plain loop of the eager policy step (encode, forward,
+    Gumbel argmax, log-probability) and the reset mode's env step, the
+    trajectory stacked at the end: (env_state, obs, traj)."""
+    if resets == "fresh":
+        buffer = env.presample_fresh(g, n_buf)
+        cursor = torch.zeros((), dtype=torch.int32)
+    counts = mission_counts(obs["mission"])
+    fields = {k: [] for k in P.Transition._fields[:-1]}
+    for t in range(noise.gumbel.shape[0]):
+        enc = encode_obs({"packed": obs["packed"], "direction":
+                          obs["direction"], "mission_counts": counts}
+                         if resets == "pooled" else obs)
+        logits, value = model(enc)
+        action = torch.argmax(logits + noise.gumbel[t], dim=-1)
+        log_prob = torch.log_softmax(logits, -1).gather(
+            -1, action[:, None]).squeeze(-1)
+        keys = noise.step_keys[t]
+        if resets == "pooled":
+            obs, st, reward, term, trunc, _ = env.step_autoreset_presampled(
+                keys, st, action, noise.reset_rows.rows(t))
+        elif resets == "fresh":
+            obs, st, reward, term, trunc, _, cursor = \
+                env.step_autoreset_fresh(keys, st, action, buffer, cursor)
+        else:
+            obs, st, reward, term, trunc, _ = env.step_autoreset(
+                keys, st, action, g)
+        done = term | trunc
+        if resets == "pooled":
+            counts = torch.where(done[:, None], mission_counts(
+                noise.reset_rows.mission[t])[None], counts)
+        for k, v in zip(fields, (enc, action.to(torch.int32), log_prob,
+                                 value, reward, done)):
+            fields[k].append(v)
+    fields["obs"] = {k: torch.stack([e[k] for e in fields["obs"]])
+                     for k in fields["obs"][0]}
+    return st, obs, P.Transition(**{
+        k: v if k == "obs" else torch.stack(v) for k, v in fields.items()})
+
+
+def _rollout_pieces(resets, seed=0, B=64, T=16):
+    env = minigrid_tpu_torch.make(DK8, device=CPU).packed()
+    g = env.generator(seed)
+    model = init_params(ActorCritic(hidden=32, device=CPU), g)
+    pool = env.make_pool(g, 16) if resets == "pooled" else None
+    obs, st = env.reset_staggered(g, B)
+    noise = P.sample_rollout_noise(g, pool, B, T, model.num_actions,
+                                   device=CPU)
+    n_buf = P.fresh_sizes(env, P.PPOConfig(num_envs=B, rollout_len=T))[0]
+    return env, g, model, st, obs, noise, n_buf
+
+
+@pytest.mark.parametrize("resets", ["pooled", "fresh", "regen"])
+def test_rollout_equals_plain_loop_of_eager_policy_steps(resets):
+    """The rollout's trajectory at B=64, T=16, field for field, against a
+    plain loop of the eager policy step with the same noise; on the CPU
+    every step is eager (``policy.eager_steps`` == T, no graph)."""
+    env, g, model, st, obs, noise, n_buf = _rollout_pieces(resets)
+    seed = g.get_state()
+    before = dataclasses.asdict(POLICY)
+    st1, obs1, traj, _ = P.rollout(model, env, st, obs, noise, resets, g,
+                                   n_buf)
+    ran = {k: getattr(POLICY, k) - v for k, v in before.items()}
+    assert ran == {"graph_captures": 0, "graph_replays": 0,
+                   "eager_steps": 16}
+    g.set_state(seed)
+    st2, obs2, want = _eager_rollout(model, env, st, obs, noise, resets, g,
+                                     n_buf)
+    assert traj.hidden is None
+    assert set(traj.obs) == set(want.obs) == set(P.OBS_KEYS)
+    for k in P.OBS_KEYS:
+        assert torch.equal(traj.obs[k], want.obs[k]), k
+    for k in P.Transition._fields[1:-1]:
+        assert torch.equal(getattr(traj, k), getattr(want, k)), k
+    assert all(torch.equal(obs1[k], obs2[k]) for k in obs1)
+    assert torch.equal(st1.agent_pos, st2.agent_pos)
+
+
+def test_successive_rollouts_share_no_storage():
+    """Each rollout's trajectory owns its memory: writing into the second
+    leaves the first as it was."""
+    env, g, model, st, obs, noise, _ = _rollout_pieces("pooled", B=8, T=4)
+    st, obs, first, _ = P.rollout(model, env, st, obs, noise)
+    kept = jax.tree.map(torch.clone, first)
+    _, _, second, _ = P.rollout(model, env, st, obs, noise)
+    for x in jax.tree.leaves(second):
+        x.fill_(1)
+    for a, b in zip(jax.tree.leaves(first), jax.tree.leaves(kept)):
+        assert torch.equal(a, b)

@@ -22,6 +22,7 @@ from minigrid_tpu_torch.envs.base import random_keys
 from minigrid_tpu_torch.envs.wfc import solver
 from minigrid_tpu_torch.models import ppo as PPO
 from minigrid_tpu_torch.models.actor_critic import ActorCritic
+from minigrid_tpu_torch.models.policy_step import POLICY
 from minigrid_tpu_torch.ops.fused_step import KERNEL
 from minigrid_tpu_torch.utils import trace
 from tests.torch_port_utils import share_cpu  # noqa: F401
@@ -196,6 +197,8 @@ def test_counters_are_the_counter_objects_fields():
             for f in dataclasses.fields(roomgrid.COUNTERS)}
     want |= {f"wfc.{f.name}": getattr(solver.COUNTERS, f.name)
              for f in dataclasses.fields(solver.COUNTERS)}
+    want |= {f"policy.{k}": getattr(POLICY, k)
+             for k in ("graph_captures", "graph_replays", "eager_steps")}
     want |= {f"kernel.{k}": getattr(KERNEL, k)
              for k in ("launches", "observe_launches", "wide_launches",
                        "wide_observe_launches")}
