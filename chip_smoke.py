@@ -526,12 +526,10 @@ def clone_generator(g):
 def zero_counts():
     """Set every kernel launch count to 0: done just before a path is
     driven, whose counts are read just after."""
-    from minigrid_tpu_torch.envs.babyai.core.post_step import POST_STEP
-    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    from minigrid_tpu_torch.ops.native import COUNTERS
 
-    for name in KERNEL.COUNTS:
-        setattr(KERNEL, name, 0)
-    POST_STEP.verify_launches = 0
+    for field in dataclasses.fields(COUNTERS):
+        setattr(COUNTERS, field.name, 0)
 
 
 def assert_same(name, got, want):
@@ -735,7 +733,7 @@ def wfc_replay_steps(env_id, device, B=256, T=32):
     import minigrid_tpu_torch as mt
     from minigrid_tpu_torch.envs.base import (presample_reset_states,
                                               random_keys)
-    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    from minigrid_tpu_torch.ops.native import COUNTERS
 
     env = mt.make(env_id, device=device).packed()
     cpu_env = mt.make(env_id, device="cpu").packed()
@@ -760,7 +758,7 @@ def wfc_replay_steps(env_id, device, B=256, T=32):
             assert_same(f"{short(env_id)} pooled step {t} {part}", x, y)
         st, st_c = out[1], ref[1]
         n_done += int((out[3] | out[4]).sum())
-    return n_done, (KERNEL.launches, KERNEL.observe_launches)
+    return n_done, (COUNTERS.launches, COUNTERS.observe_launches)
 
 
 def wfc_generation(env_id, device, B=BATCH):
@@ -871,6 +869,7 @@ def post_step_case(env_id: str, B: int = BATCH, T: int = POST_STEP_T):
     import minigrid_tpu_torch as mt
     from minigrid_tpu_torch.envs.babyai.core import post_step as PS
     from minigrid_tpu_torch.ops.fused_step import fused_rollout
+    from minigrid_tpu_torch.ops.native import COUNTERS
 
     env = mt.make(env_id, device="cuda").packed()
     g = env.generator(SEED + 17)
@@ -913,8 +912,8 @@ def post_step_case(env_id: str, B: int = BATCH, T: int = POST_STEP_T):
         st = new.replace(terminated=te, truncated=tr,
                          extra={**new.extra, **instr})
     torch.cuda.synchronize()
-    if PS.POST_STEP.verify_launches != calls:
-        raise AssertionError(f"{env_id}: {PS.POST_STEP.verify_launches} "
+    if COUNTERS.verify_launches != calls:
+        raise AssertionError(f"{env_id}: {COUNTERS.verify_launches} "
                              f"post-step launches over {calls} calls")
     # (a put-next seldom succeeds by chance: the default mode may end none)
     if not (ended[True] and truncated):
@@ -950,9 +949,9 @@ def post_step_phase(card: str):
     from minigrid_tpu_torch.envs.babyai.core import post_step as PS
 
     t0 = time.perf_counter()
-    PS.POST_STEP.library()
+    PS.LIBRARY.load()
     print(f"post-step kernel built in {time.perf_counter() - t0:.2f} s")
-    for line in PS.POST_STEP.build_log.splitlines():
+    for line in PS.LIBRARY.build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  " + line.strip())
     shapes, timers = {}, {}
@@ -1017,7 +1016,7 @@ def surface_vector_run(env_id, wrapper, T, B=BATCH):
     import minigrid_tpu_torch as mt
     from minigrid_tpu_torch import wrappers as WR
     from minigrid_tpu_torch.envs.base import random_keys
-    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    from minigrid_tpu_torch.ops.native import COUNTERS
 
     def stack(device):
         env = mt.make(env_id, device=device).packed()
@@ -1054,7 +1053,7 @@ def surface_vector_run(env_id, wrapper, T, B=BATCH):
         record.append((keys, a, layouts, out))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = (KERNEL.launches, KERNEL.observe_launches)
+    launches = (COUNTERS.launches, COUNTERS.observe_launches)
     name = short(env_id) if wrapper is None else f"{wrapper}({short(env_id)})"
     if launches != (T, T):
         raise AssertionError(f"{name} vector({B}): (step, observe) launches "
@@ -1207,7 +1206,7 @@ def p7_timed_rollout(env, mesh, resets, st, obs, seed, pool=None, T=None):
     ms)."""
     import torch
 
-    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    from minigrid_tpu_torch.ops.native import COUNTERS
     from minigrid_tpu_torch.parallel.rollout import make_rollout
 
     make_rollout(env, None, 4, resets=resets, mesh=mesh)(
@@ -1221,7 +1220,7 @@ def p7_timed_rollout(env, mesh, resets, st, obs, seed, pool=None, T=None):
         out = rollout(None, st, obs, env.generator(seed), pool)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-    return out, (KERNEL.launches, KERNEL.observe_launches), calls.calls, ms
+    return out, (COUNTERS.launches, COUNTERS.observe_launches), calls.calls, ms
 
 
 def p7_random_rollout(mesh=None):
@@ -1472,7 +1471,7 @@ def p7_train_step(mesh=None, dtype_name: str = "bfloat16"):
     from minigrid_tpu_torch.models import ppo as P
     from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
                                                         init_params)
-    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    from minigrid_tpu_torch.ops.native import COUNTERS
     from minigrid_tpu_torch.parallel import mesh as M
 
     env = p7_env()
@@ -1496,7 +1495,7 @@ def p7_train_step(mesh=None, dtype_name: str = "bfloat16"):
     return {"params": {k: v.cpu().numpy()
                        for k, v in model.state_dict().items()},
             "init": init,
-            "launches": (KERNEL.launches, KERNEL.observe_launches)}
+            "launches": (COUNTERS.launches, COUNTERS.observe_launches)}
 
 
 def p7_world_of_one(backend: str) -> dict:
@@ -1843,7 +1842,6 @@ def main() -> int:
     from minigrid_tpu_torch.envs.babyai.core import level as level_module
     from minigrid_tpu_torch.envs.babyai.core.level import (USE_DONE_ACTIONS,
                                                            RoomGridLevel)
-    from minigrid_tpu_torch.envs.babyai.core.post_step import POST_STEP
     from minigrid_tpu_torch.models.bc import behavior_clone
     from minigrid_tpu_torch.models.eval import episode_budget, evaluate_success
     from minigrid_tpu_torch.utils.demos import generate_demos
@@ -1853,11 +1851,13 @@ def main() -> int:
                                                make_train_step, ppo_update,
                                                rollout, sample_rollout_noise,
                                                update_minibatch)
+    from minigrid_tpu_torch.envs.base import has_step_hooks
     from minigrid_tpu_torch.ops import fused_step as F
     from minigrid_tpu_torch.ops.fused_step import (
-        GROUP_LANES, KERNEL, _fused_observe_cuda, _fused_rollout_cuda,
-        fused_observe_reference, fused_rollout_reference, has_step_hooks,
-        launch_geometry, observe_launch_geometry, sm_count)
+        GROUP_LANES, _fused_observe_cuda, _fused_rollout_cuda,
+        fused_observe_reference, fused_rollout_reference, launch_geometry,
+        observe_launch_geometry, sm_count)
+    from minigrid_tpu_torch.ops.native import COUNTERS
 
     from minigrid_tpu_torch.utils.demos import bot_episodes, reset_seeds
     from minigrid_tpu_torch.benchmark import benchmark
@@ -1871,9 +1871,9 @@ def main() -> int:
 
     # --- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    KERNEL.library()
+    F.LIBRARY.load()
     print(f"kernel built in {time.perf_counter() - t0:.2f} s")
-    for line in KERNEL.build_log.splitlines():
+    for line in F.LIBRARY.build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  " + line.strip())
     sms = sm_count(torch.device("cuda"))
@@ -2152,7 +2152,7 @@ def main() -> int:
     st, obs, traj, _ = rollout(model, env, st, obs, noise)
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = COUNTERS.launches
     print(f"main path: {ROLLOUT_LEN}-step pooled rollout, B={BATCH}: "
           f"{launches} kernel launches")
     if launches != ROLLOUT_LEN:
@@ -2272,7 +2272,7 @@ def main() -> int:
                 assert_same(f"{mode} step {t} {name}", x, y)
             st, st_c = out[1], ref[1]
             n_done += int((out[3] | out[4]).sum())
-        if (KERNEL.launches, KERNEL.observe_launches) != (T, T):
+        if (COUNTERS.launches, COUNTERS.observe_launches) != (T, T):
             raise AssertionError(f"{mode}: expected {T} step and {T} observe "
                                  "launches")
         if n_done < B:
@@ -2329,8 +2329,8 @@ def main() -> int:
             n_success += int((out[2] > 0).sum())
         level_module.USE_DONE_ACTIONS = USE_DONE_ACTIONS
         want = (T, T if level else T // 2, T if level else 0)
-        launched = (KERNEL.launches, KERNEL.observe_launches,
-                    POST_STEP.verify_launches)
+        launched = (COUNTERS.launches, COUNTERS.observe_launches,
+                    COUNTERS.verify_launches)
         if launched != want:
             raise AssertionError(f"{env_id}: (step, observe, post-step) "
                                  f"launches {launched}, expected {want}")
@@ -2369,7 +2369,7 @@ def main() -> int:
             for variant, kw in RENDER_VARIANTS.items():
                 zero_counts()
                 got = get_frame(env.params, st, tile_size=tile, **kw)
-                launched[variant].append(KERNEL.observe_launches)
+                launched[variant].append(COUNTERS.observe_launches)
                 want = get_frame(env.params, st_c, tile_size=tile, **kw)
                 assert_same(f"{short(env_id)} {variant} frame tile {tile}",
                             got, want)
@@ -2433,7 +2433,7 @@ def main() -> int:
                 assert_same(f"{name} step {t} {part}", x, y)
             st, st_c = out[1], ref[1]
             n_done += int((out[3] | out[4]).sum())
-        launched = (KERNEL.launches, KERNEL.observe_launches)
+        launched = (COUNTERS.launches, COUNTERS.observe_launches)
         want = (per_step[0] * T, per_step[1] * T)
         if launched != want:
             raise AssertionError(f"{name}: (step, observe) launches "
@@ -2467,8 +2467,8 @@ def main() -> int:
         eps = bot_episodes(benv, obs0, st0_b, BOT_STEPS, trace)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launched = (KERNEL.launches, KERNEL.observe_launches,
-                    POST_STEP.verify_launches)
+        launched = (COUNTERS.launches, COUNTERS.observe_launches,
+                    COUNTERS.verify_launches)
         if launched != (len(trace),) * 3:
             raise AssertionError(f"{level}: (step, observe, post-step) "
                                  f"launches {launched} over {len(trace)} "
@@ -2567,8 +2567,8 @@ def main() -> int:
                 visits.append(st.wrapper.sum())
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / reps
-        launches_t = KERNEL.launches, KERNEL.observe_launches
-        verify_launches = POST_STEP.verify_launches
+        launches_t = COUNTERS.launches, COUNTERS.observe_launches
+        verify_launches = COUNTERS.verify_launches
         one_launch = (mode == "pooled" and wrap is None
                       and not has_step_hooks(tenv))
         visits = [int(v) for v in visits]
@@ -2697,7 +2697,7 @@ def main() -> int:
             metrics.append(m)
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / 3
-        launches_t = KERNEL.launches, KERNEL.observe_launches
+        launches_t = COUNTERS.launches, COUNTERS.observe_launches
         if launches_t != (3 * ROLLOUT_LEN, 3 * ROLLOUT_LEN):
             raise AssertionError(f"recurrent train steps: (step, observe) "
                                  f"launches {launches_t}")
@@ -3078,7 +3078,7 @@ def main() -> int:
     wfc["benchmark"] = benchmark(WFC_IDS[0], num_resets=4, num_frames=200,
                                  batch=BATCH, chunk=ROLLOUT_LEN,
                                  device="cuda")
-    wfc["benchmark"]["launches"] = KERNEL.launches
+    wfc["benchmark"]["launches"] = COUNTERS.launches
     print(f"benchmark, {short(WFC_IDS[0])}: {json.dumps(wfc['benchmark'])} "
           f"(host clock; {card})")
     wfc_secs["5 generation, product, benchmark"] = time.perf_counter() - t0
@@ -3141,13 +3141,13 @@ def main() -> int:
         sst = run(sst)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        per_step = (KERNEL.launches // ROLLOUT_LEN,
-                    KERNEL.observe_launches // ROLLOUT_LEN)
+        per_step = (COUNTERS.launches // ROLLOUT_LEN,
+                    COUNTERS.observe_launches // ROLLOUT_LEN)
         res = {"env_steps_per_s": BATCH * ROLLOUT_LEN / secs,
                "launches_per_step": per_step[0],
                "observe_launches_per_step": per_step[1],
-               "wide_launches": KERNEL.wide_launches,
-               "wide_observe_launches": KERNEL.wide_observe_launches}
+               "wide_launches": COUNTERS.wide_launches,
+               "wide_observe_launches": COUNTERS.wide_observe_launches}
         return res, lambda: cuda_events(lambda: run(sst))
 
     stepping, profile_stepping = {}, {}
@@ -3370,7 +3370,7 @@ def main() -> int:
     t0 = time.perf_counter()
     demos = generate_demos(ienv, 300)
     demo_s = time.perf_counter() - t0
-    demo_launches = (KERNEL.launches, KERNEL.observe_launches)
+    demo_launches = (COUNTERS.launches, COUNTERS.observe_launches)
     ig = ienv.generator(SEED)
     bc_model = init_params(ActorCritic(hidden=128, device="cuda"), ig)
     t0 = time.perf_counter()

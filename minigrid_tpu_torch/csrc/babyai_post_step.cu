@@ -42,9 +42,8 @@
 // 1.0 - 0.9 * t / m in float32, so it is bit-identical to the plain
 // version.
 //
-// A library of its own, built by ops/fused_step.py::build with the fused
-// step's flags, plain C interface, loaded with ctypes
-// (envs/babyai/core/post_step.py::PostStepKernel).
+// A library of its own with a plain C interface, built and loaded with
+// ctypes through ops/native.py (envs/babyai/core/post_step.py::LIBRARY).
 
 #include <cstdint>
 #include <cstddef>

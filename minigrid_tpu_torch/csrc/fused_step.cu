@@ -121,9 +121,11 @@
 // -fmad=false), so it is bit-identical to the plain PyTorch version.
 //
 // Built with nvcc into a shared library with a plain C interface, loaded
-// with ctypes (minigrid_tpu_torch/ops/fused_step.py).
+// with ctypes (minigrid_tpu_torch/ops/native.py).
 
+#include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 #include <cuda_runtime.h>
 
@@ -166,6 +168,7 @@ struct Args {
   int B, T, W, H, V, max_steps, see_through, native_layout;
   int G, envs;  // lanes per env, envs per block
 };
+constexpr int kStepPointers = 19;
 
 struct ObserveArgs {
   const uint8_t* grid_in;   // (B, W, H, 5)
@@ -176,6 +179,7 @@ struct ObserveArgs {
   int B, W, H, V, see_through;
   int G, envs;  // lanes per env, envs per block
 };
+constexpr int kObservePointers = 5;
 
 // Shared memory of a block of `envs` envs of the step entries, from the
 // start (mirrored by ops/fused_step.py::shared_memory_bytes): the packed
@@ -851,38 +855,18 @@ extern "C" {
 // geometry the kernel does not take (view size odd 3..63; G lanes per env
 // a power of two up to 32; envs_per_block * G a multiple of 32, at most
 // 256), or the CUDA error of the launch. Shared memory above 48 KB per
-// block is opted into (up to the card's limit).
-int fused_step_launch(
-    const void* grid_in, const void* pos_in, const void* dir_in,
-    const void* carry_in, const void* step_in, const void* actions,
-    const void* reset_grid, const void* reset_scal,
-    void* obs, void* reward, void* term, void* trunc,
-    void* grid_out, void* pos_out, void* dir_out, void* carry_out,
-    void* step_out, void* term_out, void* trunc_out,
-    int B, int T, int W, int H, int view_size, int max_steps,
-    int see_through, int native_layout, int group_lanes, int envs_per_block,
-    void* stream) {
+// block is opted into (up to the card's limit). `pointers` is a host array
+// of kStepPointers device pointers in Args' order; reset_grid and
+// reset_scal are both null for no reset row.
+int fused_step_launch(const void* const* pointers, int B, int T, int W,
+                      int H, int view_size, int max_steps, int see_through,
+                      int native_layout, int group_lanes, int envs_per_block,
+                      void* stream) {
   if (bad_geometry(view_size, group_lanes, envs_per_block)) return kBadLaunch;
+  static_assert(offsetof(Args, B) == sizeof(void*) * kStepPointers,
+                "the pointer table and Args disagree");
   Args a;
-  a.grid_in = static_cast<const uint8_t*>(grid_in);
-  a.pos_in = static_cast<const int32_t*>(pos_in);
-  a.dir_in = static_cast<const int32_t*>(dir_in);
-  a.carry_in = static_cast<const uint8_t*>(carry_in);
-  a.step_in = static_cast<const int32_t*>(step_in);
-  a.actions = static_cast<const int32_t*>(actions);
-  a.reset_grid = static_cast<const int32_t*>(reset_grid);
-  a.reset_scal = static_cast<const int32_t*>(reset_scal);
-  a.obs = static_cast<int32_t*>(obs);
-  a.reward = static_cast<float*>(reward);
-  a.term = static_cast<uint8_t*>(term);
-  a.trunc = static_cast<uint8_t*>(trunc);
-  a.grid_out = static_cast<uint8_t*>(grid_out);
-  a.pos_out = static_cast<int32_t*>(pos_out);
-  a.dir_out = static_cast<int32_t*>(dir_out);
-  a.carry_out = static_cast<uint8_t*>(carry_out);
-  a.step_out = static_cast<int32_t*>(step_out);
-  a.term_out = static_cast<uint8_t*>(term_out);
-  a.trunc_out = static_cast<uint8_t*>(trunc_out);
+  std::memcpy(&a, pointers, sizeof(void*) * kStepPointers);
   a.B = B; a.T = T; a.W = W; a.H = H; a.V = view_size;
   a.max_steps = max_steps;
   a.see_through = see_through; a.native_layout = native_layout;
@@ -896,18 +880,16 @@ int fused_step_launch(
 // The observation of each env's state as given: obs (B, V*V) int32 in the
 // public layout, the same words the step entry writes for a step. Same
 // return codes and geometry rules as fused_step_launch; its shared memory
-// is envs_per_block * V*V * 4 bytes.
-int fused_observe_launch(const void* grid_in, const void* pos_in,
-                         const void* dir_in, const void* carry_in, void* obs,
-                         int B, int W, int H, int view_size, int see_through,
-                         int group_lanes, int envs_per_block, void* stream) {
+// is envs_per_block * V*V * 4 bytes. `pointers` is a host array of
+// kObservePointers device pointers in ObserveArgs' order.
+int fused_observe_launch(const void* const* pointers, int B, int W, int H,
+                         int view_size, int see_through, int group_lanes,
+                         int envs_per_block, void* stream) {
   if (bad_geometry(view_size, group_lanes, envs_per_block)) return kBadLaunch;
+  static_assert(offsetof(ObserveArgs, B) == sizeof(void*) * kObservePointers,
+                "the pointer table and ObserveArgs disagree");
   ObserveArgs a;
-  a.grid_in = static_cast<const uint8_t*>(grid_in);
-  a.pos_in = static_cast<const int32_t*>(pos_in);
-  a.dir_in = static_cast<const int32_t*>(dir_in);
-  a.carry_in = static_cast<const uint8_t*>(carry_in);
-  a.obs = static_cast<int32_t*>(obs);
+  std::memcpy(&a, pointers, sizeof(void*) * kObservePointers);
   a.B = B; a.W = W; a.H = H; a.V = view_size;
   a.see_through = see_through;
   a.G = group_lanes; a.envs = envs_per_block;

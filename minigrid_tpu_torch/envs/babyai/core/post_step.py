@@ -16,48 +16,20 @@ arguments. The JAX package has no kernel here: its verifier is ``jnp`` under
 Routing is by the device of the tensors, as ``fused_step.fused_rollout``
 routes: CPU tensors take :func:`babyai_post_step_reference` (the verifier
 and the reward arithmetic in PyTorch), CUDA tensors the kernel or raise;
-nothing falls back. The kernel is a library of its own, built at first use
-by the fused step's ``build`` (:data:`POST_STEP`, which also counts its
-launches as ``verify_launches``).
+nothing falls back. The kernel is :data:`LIBRARY`, built, loaded, checked,
+called and counted (``kernel.verify_launches``) through ``ops/native.py``.
 """
 
 from __future__ import annotations
 
-import array
-import ctypes
-
 import torch
 
 from minigrid_tpu_torch.envs.babyai.core import instrs as I
-from minigrid_tpu_torch.ops import fused_step
+from minigrid_tpu_torch.ops import native
 
-SOURCE = fused_step.SOURCE.parent / "babyai_post_step.cu"
-
-
-class PostStepKernel:
-    """The kernel's library (:data:`SOURCE`, built and loaded at first use)
-    and ``verify_launches``, the count of its launches (a plain int that
-    only the launches add to)."""
-
-    def __init__(self):
-        self.verify_launches = 0
-        self.build_log = ""
-        self._lib = None
-
-    def library(self):
-        if self._lib is None:
-            path, self.build_log = fused_step.build((SOURCE,))
-            lib = ctypes.CDLL(str(path))
-            lib.babyai_post_step_launch.argtypes = (
-                [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            lib.babyai_post_step_launch.restype = ctypes.c_int
-            lib.babyai_post_step_error_string.argtypes = [ctypes.c_int]
-            lib.babyai_post_step_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
-
-
-POST_STEP = PostStepKernel()
+SOURCE = native.CSRC / "babyai_post_step.cu"
+# the entry's (device pointers, ints): csrc/babyai_post_step.cu kPointers
+LIBRARY = native.Library(SOURCE, {"babyai_post_step_launch": (33, 4)})
 
 # the ``extra`` entries of the InstrState fields a step writes, in the
 # order of the kernel's outputs; the others pass through
@@ -102,7 +74,11 @@ def _inputs(prev, new, action, reward, terminated) -> list:
 
 
 def _specs(B: int, W: int, H: int) -> list:
-    """(name, dtype, shape) of each of :func:`_inputs`."""
+    """(name, dtype, shape) of each of :func:`_inputs`; raises
+    ``ValueError`` for a width the kernel's packed masks do not take."""
+    if W > I.MAX_PACKED_WIDTH:
+        raise ValueError(f"the kernel takes packed widths up to "
+                         f"{I.MAX_PACKED_WIDTH}, got {W}")
     i32, u8, b8, f32 = torch.int32, torch.uint8, torch.bool, torch.float32
     state = [("agent_pos", i32, (B, 2)), ("agent_dir", i32, (B,)),
              ("carrying", u8, (B, 5)), ("grid", u8, (B, W, H, 5))]
@@ -115,30 +91,6 @@ def _specs(B: int, W: int, H: int) -> list:
             + [("new.step_count", i32, (B,)), ("action", i32, (B,))]
             + [(k,) + spec for k, spec in zip(EXTRA_READ, instr)]
             + [("reward", f32, (B,)), ("terminated", b8, (B,))])
-
-
-_CHECKED: set = set()  # the (B, W, H, device) whose inputs were checked
-
-
-def _check_inputs(tensors: list, B: int, W: int, H: int, device) -> None:
-    """Device, dtype and shape of every input once per (B, W, H, device);
-    contiguity every call."""
-    key = (B, W, H, device)
-    if key not in _CHECKED:
-        if W > I.MAX_PACKED_WIDTH:
-            raise ValueError(f"the kernel takes packed widths up to "
-                             f"{I.MAX_PACKED_WIDTH}, got {W}")
-        for t, (name, dtype, shape) in zip(tensors, _specs(B, W, H)):
-            if t.device != device:
-                raise ValueError(f"{name} must be on {device}, got "
-                                 f"{t.device}")
-            if t.dtype != dtype or tuple(t.shape) != shape:
-                raise ValueError(f"{name} must be {dtype} {shape}, got "
-                                 f"{t.dtype} {tuple(t.shape)}")
-        _CHECKED.add(key)
-    if not all(map(torch.Tensor.is_contiguous, tensors)):
-        raise ValueError("the BabyAI post-step kernel takes contiguous "
-                         "tensors")
 
 
 # The outputs of the kernel's calls are allocated in chunks, for up to
@@ -186,26 +138,15 @@ def _babyai_post_step_cuda(params, prev, new, action, reward, terminated,
                            use_done_actions: bool):
     B, W, H = new.batch_size, params.width, params.height
     dev = new.grid.device
-    if B < 1:
-        raise ValueError(f"empty launch: B={B}")
     tensors = _inputs(prev, new, action, reward, terminated)
-    _check_inputs(tensors, B, W, H, dev)
-    # the current stream's raw handle (``torch.cuda.current_stream`` builds a
-    # Stream object, ~4 us of host a call on an H100's host)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    native.check(tensors, _specs(B, W, H))
+    stream = native.stream(dev)
     masks, status, new_reward, carried, memory, ends = _Outputs.take(
         B, H, dev, stream)
-    ptrs = array.array("q", [t.data_ptr() for t in tensors])
-    ptrs.extend([masks[0].data_ptr(), status.data_ptr(),
-                 new_reward.data_ptr(), carried.data_ptr(),
-                 memory[0].data_ptr(), ends[0].data_ptr()])
-    lib = POST_STEP.library()
-    code = lib.babyai_post_step_launch(ptrs.buffer_info()[0], B, W, H,
-                                       int(use_done_actions), stream)
-    if code != 0:
-        msg = lib.babyai_post_step_error_string(code).decode()
-        raise RuntimeError(f"babyai_post_step kernel launch failed: {msg}")
-    POST_STEP.verify_launches += 1
+    LIBRARY.call("babyai_post_step_launch", tensors + [
+        masks[0], status, new_reward, carried, memory[0], ends[0]],
+        (B, W, H, int(use_done_actions)), stream)
+    native.COUNTERS.verify_launches += 1
     updates = dict(zip(UPDATED, (*masks, carried, *memory, *ends[:2])))
     return status, updates, new_reward, ends[2], ends[3]
 

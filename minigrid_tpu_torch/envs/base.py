@@ -44,7 +44,7 @@ from minigrid_tpu_torch.core.obs import packed_to_image
 from minigrid_tpu_torch.core.types import (MISSION_LEN, EnvParams, EnvState,
                                            resolve_device)
 from minigrid_tpu_torch.ops.fused_step import (fused_observe, fused_rollout,
-                                               has_step_hooks, pack_rows,
+                                               pack_rows,
                                                require_core_dynamics,
                                                unpack_rows)
 from minigrid_tpu_torch.utils import trace
@@ -386,6 +386,20 @@ def require_bare_env(env, what: str):
     if not isinstance(env, MiniGridEnv):
         raise NotImplementedError(
             f"{what} operates on bare envs (got {type(env).__name__})")
+
+
+STEP_HOOKS = ("_transform_action", "_pre_step", "_post_step")
+
+
+def has_step_hooks(env) -> bool:
+    """Whether ``env``'s class overrides one of :data:`STEP_HOOKS`, or the
+    env carries transition wrappers composed into its step (its
+    ``transitions``, set on the instance by ``wrappers``): its steps then
+    run the hook path around the fused step (:func:`hooked_step`) instead
+    of the broadcast reset-row entry."""
+    return bool(env.transitions) or any(
+        getattr(type(env), name) is not getattr(MiniGridEnv, name)
+        for name in STEP_HOOKS)
 
 
 def hooked_step(env, keys, states: EnvState, actions):

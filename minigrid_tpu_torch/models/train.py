@@ -179,10 +179,11 @@ def _train_rank(env_id, cfg: TrainConfig, out_dir):
 
 def _train_spawned(env_id, cfg: TrainConfig, log_fn, device, backend):
     dev = resolve_device(device)
-    if dev.type == "cuda":  # once, before the ranks could race to build it
-        from minigrid_tpu_torch.ops.fused_step import build
+    if dev.type == "cuda":  # once, before the ranks could race to build them
+        from minigrid_tpu_torch.ops import native
 
-        build()
+        for source in sorted(native.CSRC.glob("*.cu")):
+            native.build((source,))
     with tempfile.TemporaryDirectory() as out_dir:
         history = M.spawn(_train_rank, cfg.devices, backend, device,
                           args=(env_id, cfg, out_dir),

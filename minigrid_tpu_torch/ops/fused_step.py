@@ -9,34 +9,25 @@ env's view window from device memory, its geometry is
 :func:`observe_launch_geometry`). On the card
 this is the transition of every env: those without step hooks
 (:func:`require_core_dynamics`) step and take the pooled broadcast row in
-one launch, and a hook env (:func:`has_step_hooks`) runs its hooks in
-PyTorch around the step entry without a reset row. Its observe-only entry,
-:func:`fused_observe`, observes states as given: the resets that select a
-different state into each finished env (regenerated, per-env pool rows, the
-fresh buffer, a hook env's broadcast row) step without a reset row, select
-in PyTorch, then observe through it.
+one launch, and a hook env (``envs/base.py::has_step_hooks``) runs its
+hooks in PyTorch around the step entry without a reset row. Its
+observe-only entry, :func:`fused_observe`, observes states as given: the
+resets that select a different state into each finished env (regenerated,
+per-env pool rows, the fresh buffer, a hook env's broadcast row) step
+without a reset row, select in PyTorch, then observe through it.
 
 Routing is by the device of the tensors: CPU tensors take
 :func:`fused_rollout_reference` (the port's ``step_core`` + ``gen_obs``),
 CUDA tensors take the kernel or raise; nothing falls back.
 
-The kernel is compiled at first use with ``nvcc`` into a shared library with
-a plain C interface, under ``minigrid_tpu_torch/_build/`` (named by a hash of
-the source and flags, so an edited source is rebuilt), and loaded with
-``ctypes``. :func:`build` takes the sources of any other kernel of the
-package's plain C route.
+The kernel is :data:`LIBRARY`, built, loaded, checked, called and counted
+through ``ops/native.py``, the route of every hand-written kernel of the
+port.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
@@ -44,6 +35,7 @@ from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core.obs import gen_obs
 from minigrid_tpu_torch.core.step import step_core
 from minigrid_tpu_torch.core.types import EnvParams, EnvState
+from minigrid_tpu_torch.ops import native
 from minigrid_tpu_torch.utils import trace
 
 NSCAL = 8  # x, y, dir, carrying, step_count, terminated, truncated, pad
@@ -79,28 +71,10 @@ MAX_WARPS_PER_SM, MAX_BLOCKS_PER_SM = 64, 32  # an sm_90 SM's other limits
 # (port_probes/rollout_profile.py --sweep-only, PERF.md).
 OBSERVE_CELLS_PER_ROW = 3
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_step.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
-
-
-STEP_HOOKS = ("_transform_action", "_pre_step", "_post_step")
-
-
-def has_step_hooks(env) -> bool:
-    """Whether ``env``'s class overrides one of :data:`STEP_HOOKS`, or the
-    env carries transition wrappers composed into its step (its
-    ``transitions``, set on the instance by ``wrappers``): its steps then
-    run the hook path around the fused step (``envs/base.py::hooked_step``)
-    instead of the broadcast reset-row entry."""
-    from minigrid_tpu_torch.envs.base import MiniGridEnv
-
-    return bool(env.transitions) or any(
-        getattr(type(env), name) is not getattr(MiniGridEnv, name)
-        for name in STEP_HOOKS)
+SOURCE = native.CSRC / "fused_step.cu"
+# (device pointers, ints) of each entry: csrc/fused_step.cu's k*Pointers
+LIBRARY = native.Library(SOURCE, {"fused_step_launch": (19, 10),
+                                  "fused_observe_launch": (5, 7)})
 
 
 def require_core_dynamics(env) -> None:
@@ -111,7 +85,7 @@ def require_core_dynamics(env) -> None:
     ``step_state``/``_pre_step``/``_post_step``/``_transform_action``, or
     carries composed transition wrappers, would get wrong dynamics through
     it."""
-    from minigrid_tpu_torch.envs.base import MiniGridEnv
+    from minigrid_tpu_torch.envs.base import STEP_HOOKS, MiniGridEnv
 
     if env.transitions:
         names = ", ".join(type(w).__name__ for w in env.transitions)
@@ -208,74 +182,6 @@ def fused_rollout_reference(params: EnvParams, states: EnvState,
 # --------------------------------------------------------------------------
 # The kernel
 # --------------------------------------------------------------------------
-
-class FusedStepKernel:
-    """The compiled library, built and loaded at first use, and the counts
-    of its launches: ``launches`` of the step entry, ``observe_launches`` of
-    the observe entry, and of those the launches at views wider than
-    :data:`NARROW_VIEW` (the 64-bit-row family), ``wide_launches`` and
-    ``wide_observe_launches`` (plain ints that only the launches add to,
-    named in :attr:`COUNTS`)."""
-
-    COUNTS = ("launches", "observe_launches", "wide_launches",
-              "wide_observe_launches")
-
-    def __init__(self):
-        for name in self.COUNTS:
-            setattr(self, name, 0)
-        self.build_log = ""
-        self._lib = None
-
-    def library(self):
-        if self._lib is None:
-            path, self.build_log = build()
-            lib = ctypes.CDLL(str(path))
-            lib.fused_step_launch.argtypes = (
-                [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
-                + [ctypes.c_void_p])
-            lib.fused_step_launch.restype = ctypes.c_int
-            lib.fused_observe_launch.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                + [ctypes.c_void_p])
-            lib.fused_observe_launch.restype = ctypes.c_int
-            lib.fused_step_error_string.argtypes = [ctypes.c_int]
-            lib.fused_step_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
-
-
-KERNEL = FusedStepKernel()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
-def build(sources: tuple = (SOURCE,)) -> tuple[Path, str]:
-    """Compile ``sources`` (``.cu`` files) into one library, named after the
-    first, under :data:`BUILD_DIR` (once per sources and flag set), and
-    return (library path, compiler output). The output carries ptxas's
-    register, shared-memory and spill report; empty when already built."""
-    src = b"".join(Path(path).read_bytes() for path in sources)
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{Path(sources[0]).stem}_{tag}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
-
 
 def check_view_size(view_size: int) -> None:
     """Raise ``ValueError`` unless the kernel takes ``view_size``."""
@@ -443,41 +349,32 @@ def sm_count(device: torch.device) -> int:
     return _SM_COUNTS[idx]
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _inputs(states: EnvState, actions, reset_grid, reset_scal) -> list:
+    """The tensors the step entry reads, in its pointer table's order
+    (csrc/fused_step.cu ``Args``); the observe entry reads the first four."""
+    return [states.grid, states.agent_pos, states.agent_dir, states.carrying,
+            states.step_count, actions, reset_grid, reset_scal]
 
 
-def _check_state(states: EnvState, B: int, W: int, H: int):
-    _check(states.grid, "grid", torch.uint8, (B, W, H, 5))
-    _check(states.agent_pos, "agent_pos", torch.int32, (B, 2))
-    _check(states.agent_dir, "agent_dir", torch.int32, (B,))
-    _check(states.carrying, "carrying", torch.uint8, (B, 5))
+def _specs(T: int, B: int, W: int, H: int) -> list:
+    """(name, dtype, shape) of each of :func:`_inputs`."""
+    i32, u8 = torch.int32, torch.uint8
+    return [("grid", u8, (B, W, H, 5)), ("agent_pos", i32, (B, 2)),
+            ("agent_dir", i32, (B,)), ("carrying", u8, (B, 5)),
+            ("step_count", i32, (B,)), ("actions", i32, (T, B)),
+            ("reset_grid", i32, (T, W * H)), ("reset_scal", i32, (T, NSCAL))]
 
 
 def _fused_rollout_cuda(params, states, actions, native_layout, reset_grid,
                         reset_scal, group_lanes: int | None = None):
     W, H, V = params.width, params.height, params.view_size
-    NC = W * H
     T, B = actions.shape
     check_view_size(V)
-    if T < 1 or B < 1:
-        raise ValueError(f"empty launch: T={T}, B={B}")
-    _check(actions, "actions", torch.int32, (T, B))
-    geo = launch_geometry(B, W, H, V, sm_count(actions.device), group_lanes)
-    _check_state(states, B, W, H)
-    _check(states.step_count, "step_count", torch.int32, (B,))
-    if reset_grid is not None:
-        _check(reset_grid, "reset_grid", torch.int32, (T, NC))
-        _check(reset_scal, "reset_scal", torch.int32, (T, NSCAL))
-    dev = actions.device
+    inputs = _inputs(states, actions, reset_grid, reset_scal)
+    native.check(inputs, _specs(T, B, W, H))
+    dev = states.grid.device
+    stream = native.stream(dev)
+    geo = launch_geometry(B, W, H, V, sm_count(dev), group_lanes)
     obs = torch.empty((T, V * V, B) if native_layout else (T, B, V, V),
                       dtype=torch.int32, device=dev)
     reward = torch.empty((T, B), dtype=torch.float32, device=dev)
@@ -492,24 +389,13 @@ def _fused_rollout_cuda(params, states, actions, native_layout, reset_grid,
         terminated=torch.empty((B,), dtype=torch.bool, device=dev),
         truncated=torch.empty((B,), dtype=torch.bool, device=dev),
     )
-    lib = KERNEL.library()
-    ptr = lambda t: None if t is None else t.data_ptr()
-    code = lib.fused_step_launch(
-        ptr(states.grid), ptr(states.agent_pos), ptr(states.agent_dir),
-        ptr(states.carrying), ptr(states.step_count), ptr(actions),
-        ptr(reset_grid), ptr(reset_scal),
-        ptr(obs), ptr(reward), ptr(term), ptr(trunc),
-        ptr(out.grid), ptr(out.agent_pos), ptr(out.agent_dir),
-        ptr(out.carrying), ptr(out.step_count), ptr(out.terminated),
-        ptr(out.truncated),
-        B, T, W, H, V, params.max_steps, int(params.see_through_walls),
-        int(native_layout), geo.group_lanes, geo.envs_per_block,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if code != 0:
-        msg = lib.fused_step_error_string(code).decode()
-        raise RuntimeError(f"fused_step kernel launch failed: {msg}")
-    KERNEL.launches += 1
-    KERNEL.wide_launches += V > NARROW_VIEW
+    LIBRARY.call("fused_step_launch", inputs + [
+        obs, reward, term, trunc, out.grid, out.agent_pos, out.agent_dir,
+        out.carrying, out.step_count, out.terminated, out.truncated],
+        (B, T, W, H, V, params.max_steps, int(params.see_through_walls),
+         int(native_layout), geo.group_lanes, geo.envs_per_block), stream)
+    native.COUNTERS.launches += 1
+    native.COUNTERS.wide_launches += V > NARROW_VIEW
     return out, obs, reward, term, trunc
 
 
@@ -523,25 +409,17 @@ def fused_observe_reference(params: EnvParams, states: EnvState):
 def _fused_observe_cuda(params, states, group_lanes: int | None = None):
     W, H, V = params.width, params.height, params.view_size
     B = states.batch_size
-    check_view_size(V)
-    if B < 1:
-        raise ValueError(f"empty launch: B={B}")
-    _check_state(states, B, W, H)
+    inputs = _inputs(states, None, None, None)[:4]
+    native.check(inputs, _specs(1, B, W, H))
     dev = states.grid.device
+    stream = native.stream(dev)
     geo = observe_launch_geometry(B, V, sm_count(dev), group_lanes)
     obs = torch.empty((B, V, V), dtype=torch.int32, device=dev)
-    lib = KERNEL.library()
-    code = lib.fused_observe_launch(
-        states.grid.data_ptr(), states.agent_pos.data_ptr(),
-        states.agent_dir.data_ptr(), states.carrying.data_ptr(),
-        obs.data_ptr(), B, W, H, V, int(params.see_through_walls),
-        geo.group_lanes, geo.envs_per_block,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if code != 0:
-        msg = lib.fused_step_error_string(code).decode()
-        raise RuntimeError(f"fused_observe kernel launch failed: {msg}")
-    KERNEL.observe_launches += 1
-    KERNEL.wide_observe_launches += V > NARROW_VIEW
+    LIBRARY.call("fused_observe_launch", inputs + [obs],
+                 (B, W, H, V, int(params.see_through_walls), geo.group_lanes,
+                  geo.envs_per_block), stream)
+    native.COUNTERS.observe_launches += 1
+    native.COUNTERS.wide_observe_launches += V > NARROW_VIEW
     return obs
 
 

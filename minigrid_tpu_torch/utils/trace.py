@@ -194,24 +194,18 @@ def summary(of=None) -> dict:
 def counters() -> dict:
     """One flat snapshot of the program's counters: ``gen.*`` the RoomGrid
     and BabyAI generators' (``core/roomgrid.py::COUNTERS``), ``wfc.*`` the
-    WFC solver's (``envs/wfc/solver.py::COUNTERS``) and ``kernel.*`` the
-    launch counts of the fused kernel (``ops/fused_step.py::KERNEL``) and
-    of the BabyAI post-step kernel (``envs/babyai/core/post_step.py::
-    POST_STEP``), ``policy.*`` how the rollout's policy steps ran
-    (``models/policy_step.py::POLICY``: graph captures, graph replays,
-    eager steps)."""
+    WFC solver's (``envs/wfc/solver.py::COUNTERS``), ``policy.*`` how the
+    rollout's policy steps ran (``models/policy_step.py::POLICY``: graph
+    captures, graph replays, eager steps) and ``kernel.*`` the launch
+    counts of the hand-written kernels (``ops/native.py::COUNTERS``)."""
     # imported here: the env and kernel modules import this one
     from minigrid_tpu_torch.core import roomgrid
-    from minigrid_tpu_torch.envs.babyai.core.post_step import POST_STEP
     from minigrid_tpu_torch.envs.wfc import solver
     from minigrid_tpu_torch.models.policy_step import POLICY
-    from minigrid_tpu_torch.ops.fused_step import KERNEL
+    from minigrid_tpu_torch.ops import native
 
-    out = {}
-    for prefix, obj in (("gen", roomgrid.COUNTERS), ("wfc", solver.COUNTERS),
-                        ("policy", POLICY)):
-        out.update({f"{prefix}.{f.name}": getattr(obj, f.name)
-                    for f in dataclasses.fields(obj)})
-    out.update({f"kernel.{k}": getattr(KERNEL, k) for k in KERNEL.COUNTS})
-    out["kernel.verify_launches"] = POST_STEP.verify_launches
-    return out
+    return {f"{prefix}.{f.name}": getattr(obj, f.name)
+            for prefix, obj in (("gen", roomgrid.COUNTERS),
+                                ("wfc", solver.COUNTERS), ("policy", POLICY),
+                                ("kernel", native.COUNTERS))
+            for f in dataclasses.fields(obj)}

@@ -334,7 +334,7 @@ def _composed_step_env(base, trans_chain):
     """A copy of ``base`` carrying the transition wrappers ``trans_chain``
     (outermost first) as its ``transitions``: ``envs/base.py::hooked_step``
     applies their transforms around the env's own hooks, and
-    ``ops.fused_step.has_step_hooks`` sends every step of it down the hook
+    ``envs.base.has_step_hooks`` sends every step of it down the hook
     path (``require_core_dynamics`` refuses it the reset-row entry)."""
     if not trans_chain:
         return base

@@ -46,7 +46,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    F.KERNEL.library()
+    F.LIBRARY.load()
     cases = [("DoorKey-8x8", ENV_ID, True, None, 4096),
              ("DoorKey-8x8 B=2048", ENV_ID, True, None, 2048)]
     cases += [(name, env_id, row, None, 4096)

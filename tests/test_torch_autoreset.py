@@ -28,7 +28,8 @@ import minigrid_tpu_torch
 from minigrid_tpu_torch.convert import layout_pool_from_entries
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.envs import base as B
-from minigrid_tpu_torch.ops.fused_step import KERNEL, fused_observe
+from minigrid_tpu_torch.ops import native
+from minigrid_tpu_torch.ops.fused_step import fused_observe
 
 from tests.torch_port_utils import (share_cpu,  # noqa: F401
                                     CPU, action_stream, assert_state_equal,
@@ -63,9 +64,9 @@ def test_fused_observe_plain_matches_jax_gen_obs(env_id, view):
     env, st = _stepped(env_id, 96, view=view)
     want = jax.jit(jax.vmap(lambda s: j_gen_obs(env.params, s)))(st)[
         "packed"]
-    launches = KERNEL.observe_launches
+    launches = native.COUNTERS.observe_launches
     got = fused_observe(env.params, export(st))
-    assert KERNEL.observe_launches == launches  # CPU: the plain version
+    assert native.COUNTERS.observe_launches == launches  # CPU: plain
     assert got.shape == (96, view, view) and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     if "DoorKey" in env_id:  # the carried overlay is exercised

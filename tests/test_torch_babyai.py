@@ -46,7 +46,9 @@ from minigrid_tpu_torch.envs.babyai.core import level as L
 from minigrid_tpu_torch.envs.babyai.core import levelgen as LG
 from minigrid_tpu_torch.envs.babyai.levels import GoToObj
 from minigrid_tpu_torch.envs.babyai.core import post_step as PS
-from minigrid_tpu_torch.ops.fused_step import (fused_rollout, has_step_hooks,
+from minigrid_tpu_torch.envs.base import has_step_hooks
+from minigrid_tpu_torch.ops import native
+from minigrid_tpu_torch.ops.fused_step import (fused_rollout,
                                                require_core_dynamics)
 
 from minigrid_tpu_torch.utils import trace
@@ -342,8 +344,8 @@ def test_post_step_on_cpu_is_the_plain_verifier(level, done_actions,
     (``babyai_post_step_reference``) in the done-action mode set, never the
     kernel's wrapper, and launches nothing (``kernel.verify_launches`` reads
     0); it writes no input in place, and every state it writes is one the
-    kernel takes: its inputs pass the kernel's dtype, shape and contiguity
-    checks at each of 12 steps."""
+    kernel takes: its inputs pass the kernel's device, dtype, shape and
+    contiguity checks (``native.check``) at each of 12 steps."""
     monkeypatch.setattr(L, "USE_DONE_ACTIONS", done_actions)
     plain, modes = PS.babyai_post_step_reference, []
 
@@ -356,7 +358,6 @@ def test_post_step_on_cpu_is_the_plain_verifier(level, done_actions,
 
     monkeypatch.setattr(PS, "babyai_post_step_reference", counted)
     monkeypatch.setattr(PS, "_babyai_post_step_cuda", kernel)
-    monkeypatch.setattr(PS, "_CHECKED", set())
     penv, st = port_levels(level)
     B, W, H = st.batch_size, penv.params.width, penv.params.height
     acts = action_stream("interact" if not done_actions else "uniform", 12,
@@ -366,8 +367,7 @@ def test_post_step_on_cpu_is_the_plain_verifier(level, done_actions,
         a = torch.from_numpy(acts[t])
         new, _, reward, term, _ = fused_rollout(penv.params, st, a[None])
         inputs = PS._inputs(st, new, a, reward[0], term[0])
-        PS._CHECKED.clear()
-        PS._check_inputs(inputs, B, W, H, torch.device("cpu"))
+        native.check(inputs, PS._specs(B, W, H))
         before = [x.clone() for x in inputs]
         got, _, got_te = penv._post_step(st, new, a, reward[0], term[0])
         for x, y in zip(inputs, before):
@@ -381,10 +381,9 @@ def test_post_step_on_cpu_is_the_plain_verifier(level, done_actions,
     assert trace.counters()["kernel.verify_launches"] == 0
 
 
-def test_post_step_routes_by_device_and_checks_the_kernel_inputs(
-        monkeypatch):
+def test_post_step_routes_by_device_and_checks_the_kernel_inputs():
     """``babyai_post_step`` takes CPU or CUDA tensors only; the kernel's
-    input checks (dtype, shape and device once per shape, contiguity
+    input checks (``native.check`` of device, dtype, shape and contiguity
     every call, the packed width) hold on the CPU, and its pointer table
     is the inputs and its six outputs."""
     penv, st = port_levels("BabyAI-PutNextLocal-v0")
@@ -396,20 +395,17 @@ def test_post_step_routes_by_device_and_checks_the_kernel_inputs(
     with pytest.raises(ValueError, match="cpu or cuda"):
         PS.babyai_post_step(penv.params, *meta, False)
     B, W, H = st.batch_size, penv.params.width, penv.params.height
-    cpu = torch.device("cpu")
-    monkeypatch.setattr(PS, "_CHECKED", set())
-    PS._check_inputs(PS._inputs(*args), B, W, H, cpu)
-    assert PS._CHECKED == {(B, W, H, cpu)}
+    specs = PS._specs(B, W, H)
+    native.check(PS._inputs(*args), specs)
     bad = st.replace(extra={**st.extra, "max_steps":
                             st.extra["max_steps"].long()})
-    monkeypatch.setattr(PS, "_CHECKED", set())
     with pytest.raises(ValueError, match="max_steps must be torch.int32"):
-        PS._check_inputs(PS._inputs(bad, *args[1:]), B, W, H, cpu)
+        native.check(PS._inputs(bad, *args[1:]), specs)
     with pytest.raises(ValueError, match="packed widths"):
-        PS._check_inputs(PS._inputs(*args), B, 25, H, cpu)
+        PS._specs(B, 25, H)
     strided = st.replace(agent_pos=st.agent_pos.t().contiguous().t())
     with pytest.raises(ValueError, match="contiguous"):
-        PS._check_inputs(PS._inputs(strided, *args[1:]), B, W, H, cpu)
+        native.check(PS._inputs(strided, *args[1:]), specs)
     src = PS.SOURCE.read_text()
     assert f"kPointers = {len(PS._specs(B, W, H)) + 6};" in src
 

@@ -27,8 +27,10 @@ import minigrid_tpu_torch
 from minigrid_tpu_torch.envs.base import (MiniGridEnv, pool_from_states,
                                           random_keys)
 from minigrid_tpu_torch.ops import fused_step as F
-from minigrid_tpu_torch.ops.fused_step import (KERNEL, fused_rollout,
+from minigrid_tpu_torch.ops import native
+from minigrid_tpu_torch.ops.fused_step import (fused_rollout,
                                                require_core_dynamics)
+from minigrid_tpu_torch.ops.native import COUNTERS
 
 from tests.torch_port_utils import share_cpu  # noqa: F401
 from tests.torch_port_utils import (CPU, action_stream, assert_state_equal,
@@ -60,12 +62,12 @@ def test_plain_matches_jax_pallas_kernel(env_id, kind, view, native):
     j_new, j_obs, j_rew, j_te, j_tr = j_fused_rollout(
         params, jst, jnp.asarray(actions), T_tile=8, interpret=True,
         native_layout=native)
-    launches = KERNEL.launches
+    launches = COUNTERS.launches
     p_new, p_obs, p_rew, p_te, p_tr = fused_rollout(
         params, export(jst), torch.from_numpy(actions),
         native_layout=native)
     assert p_obs.shape[-1] == (B if native else view)
-    assert KERNEL.launches == launches  # CPU tensors: the plain version
+    assert COUNTERS.launches == launches  # CPU tensors: the plain version
     np.testing.assert_array_equal(p_obs.numpy(), np.asarray(j_obs))
     np.testing.assert_allclose(p_rew.numpy(), np.asarray(j_rew), rtol=1e-6)
     np.testing.assert_array_equal(p_te.numpy(), np.asarray(j_te))
@@ -213,17 +215,17 @@ def test_shared_memory_and_build_flags():
             F.launch_geometry(64, 8, 8, bad, 132)
     with pytest.raises(ValueError, match="group_lanes"):
         F.launch_geometry(64, 8, 8, 7, 132, 3)
-    flags = " ".join(F.NVCC_FLAGS)
+    flags = " ".join(native.NVCC_FLAGS)
     assert "sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert F.SOURCE.exists()
 
 
 def test_build_compiles_the_sources_it_is_given(tmp_path, monkeypatch):
-    """``build(sources)`` compiles every source into one library named after
-    the first, under BUILD_DIR, with the fused step's flags; it compiles
-    once per sources and flags, again after an edit (a stand-in compiler
-    here, which writes its arguments to the library)."""
+    """``native.build(sources)`` compiles every source into one library
+    named after the first, under BUILD_DIR, with the kernels' flags; it
+    compiles once per sources and flags, again after an edit (a stand-in
+    compiler here, which writes its arguments to the library)."""
     nvcc = tmp_path / "nvcc"
     nvcc.write_text('#!/bin/sh\nout=""; prev=""\nfor a in "$@"; do\n'
                     '  [ "$prev" = "-o" ] && out="$a"; prev="$a"\ndone\n'
@@ -231,23 +233,24 @@ def test_build_compiles_the_sources_it_is_given(tmp_path, monkeypatch):
                     'registers"\n')
     nvcc.chmod(0o755)
     calls = []
-    monkeypatch.setattr(F, "_nvcc", lambda: calls.append(1) or str(nvcc))
-    monkeypatch.setattr(F, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_nvcc",
+                        lambda: calls.append(1) or str(nvcc))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
     a, b = tmp_path / "first.cu", tmp_path / "second.cu"
     a.write_text("// a")
     b.write_text("// b")
-    lib, log = F.build((a, b))
+    lib, log = native.build((a, b))
     assert lib.parent == tmp_path / "build"
     assert lib.name.startswith("libfirst_") and lib.suffix == ".so"
     args = lib.read_text().split()
     assert args[-2:] == [str(a), str(b)]
-    assert args[:len(F.NVCC_FLAGS)] == F.NVCC_FLAGS
+    assert args[:len(native.NVCC_FLAGS)] == native.NVCC_FLAGS
     assert "Used 9 registers" in log
-    assert F.build((a, b)) == (lib, "") and len(calls) == 1
+    assert native.build((a, b)) == (lib, "") and len(calls) == 1
     b.write_text("// b, edited")
-    edited, _ = F.build((a, b))
+    edited, _ = native.build((a, b))
     assert edited != lib and len(calls) == 2
-    assert F.build.__defaults__ == ((F.SOURCE,),)
+    assert F.LIBRARY.source == F.SOURCE
 
 
 @pytest.mark.parametrize("group_lanes", [None, *F.GROUP_LANES])

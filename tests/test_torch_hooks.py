@@ -38,12 +38,13 @@ from minigrid_tpu_torch.convert import layout_pool_from_entries
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.mission import detokenize
 from minigrid_tpu_torch.envs import base as B
+from minigrid_tpu_torch.envs.base import has_step_hooks
 from minigrid_tpu_torch.envs.common import hash_scores
 from minigrid_tpu_torch.envs.empty import EmptyEnv
 from minigrid_tpu_torch.models.actor_critic import (ActorCritic, init_params,
                                                     mission_counts)
 from minigrid_tpu_torch.models.ppo import rollout, sample_rollout_noise
-from minigrid_tpu_torch.ops.fused_step import (fused_observe, has_step_hooks,
+from minigrid_tpu_torch.ops.fused_step import (fused_observe,
                                                require_core_dynamics)
 
 from tests.torch_port_utils import (share_cpu,  # noqa: F401

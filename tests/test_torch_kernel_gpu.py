@@ -27,7 +27,7 @@ from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
                                                     init_params_rnn)
 from minigrid_tpu_torch.models import policy_step as PST
 from minigrid_tpu_torch.models.policy_step import POLICY
-from minigrid_tpu_torch.ops.fused_step import (GROUP_LANES, KERNEL,
+from minigrid_tpu_torch.ops.fused_step import (GROUP_LANES,
                                                _fused_observe_cuda,
                                                _fused_rollout_cuda,
                                                fused_observe,
@@ -35,6 +35,7 @@ from minigrid_tpu_torch.ops.fused_step import (GROUP_LANES, KERNEL,
                                                fused_rollout,
                                                fused_rollout_reference,
                                                launch_geometry, sm_count)
+from minigrid_tpu_torch.ops.native import COUNTERS
 
 # interaction-biased action stream of tests/test_fused_step.py
 INTERACT = np.array([0, 1, 2, 2, 3, 4, 5, 5], np.int32)
@@ -195,14 +196,14 @@ def _check_case(device, env, kind, B, reset, group_lanes=None, T=32,
         rows = env.make_pool(g, 64).rows(
             torch.randint(0, 64, (T,), generator=g, device=device))
         rg, rs = rows.grid, rows.scal
-    launches = KERNEL.launches
+    launches = COUNTERS.launches
     if group_lanes is None:
         got = fused_rollout(env.params, st, actions, False, rg, rs)
     else:
         got = _fused_rollout_cuda(env.params, st, actions, False, rg, rs,
                                   group_lanes)
     torch.cuda.synchronize()
-    assert KERNEL.launches == launches + 1
+    assert COUNTERS.launches == launches + 1
     want = fused_rollout_reference(env.params, st, actions, False, rg, rs)
     for k, v in want[0].tensors().items():
         assert torch.equal(got[0].tensors()[k], v), k
@@ -227,11 +228,11 @@ def test_observe_entry_matches_plain_on_card(cuda_device, view, B,
     actions = torch.from_numpy(INTERACT[rng.integers(0, 8, (16, B))]).to(
         cuda_device)
     st = fused_rollout(env.params, st, actions)[0]
-    launches = KERNEL.observe_launches
+    launches = COUNTERS.observe_launches
     got = (fused_observe(env.params, st) if group_lanes is None else
            _fused_observe_cuda(env.params, st, group_lanes))
     torch.cuda.synchronize()
-    assert KERNEL.observe_launches == launches + 1
+    assert COUNTERS.observe_launches == launches + 1
     assert torch.equal(got, fused_observe_reference(env.params, st))
     assert (st.carrying[:, 0] != 1).any()
 
@@ -260,10 +261,10 @@ def test_observe_entry_other_shapes_on_card(cuda_device, env_id, view):
     actions = torch.from_numpy(INTERACT[rng.integers(0, 8, (16, 2048))]).to(
         cuda_device)
     st = fused_rollout(env.params, st, actions)[0]
-    launches = KERNEL.observe_launches
+    launches = COUNTERS.observe_launches
     got = fused_observe(env.params, st)
     torch.cuda.synchronize()
-    assert KERNEL.observe_launches == launches + 1
+    assert COUNTERS.observe_launches == launches + 1
     assert torch.equal(got, fused_observe_reference(env.params, st))
 
 
@@ -297,7 +298,7 @@ def test_hook_step_on_card_matches_cpu(cuda_device, env_id):
                                 % T).to(torch.int32))
     st_c = st.map(lambda x: x.cpu())
     pool = env.make_pool(g, 16)
-    counts = KERNEL.launches, KERNEL.observe_launches
+    counts = COUNTERS.launches, COUNTERS.observe_launches
     for t in range(T):
         keys = random_keys(g, (B, 2), cuda_device)
         a = torch.randint(0, 7, (B,), generator=g, device=cuda_device,
@@ -317,8 +318,8 @@ def test_hook_step_on_card_matches_cpu(cuda_device, env_id):
             assert torch.equal(x.cpu(), y)
         st, st_c = out[1], ref[1]
     torch.cuda.synchronize()
-    assert (KERNEL.launches - counts[0],
-            KERNEL.observe_launches - counts[1]) == (T, T if level
+    assert (COUNTERS.launches - counts[0],
+            COUNTERS.observe_launches - counts[1]) == (T, T if level
                                                      else T // 2)
 
 
@@ -337,7 +338,7 @@ def test_reset_modes_step_then_observe_on_card(cuda_device, mode):
                                           device=cuda_device))
     keys = random_keys(g, (B, 2), cuda_device)
     a = torch.zeros((B,), dtype=torch.int32, device=cuda_device)
-    counts = KERNEL.launches, KERNEL.observe_launches
+    counts = COUNTERS.launches, COUNTERS.observe_launches
     if mode == "regen":
         out = env.step_autoreset(keys, st, a, g)
     elif mode == "independent":
@@ -348,8 +349,8 @@ def test_reset_modes_step_then_observe_on_card(cuda_device, mode):
             keys, st, a, env.presample_fresh(g, 600),
             torch.zeros((), dtype=torch.int32, device=cuda_device), 512)
     torch.cuda.synchronize()
-    assert (KERNEL.launches, KERNEL.observe_launches) == (counts[0] + 1,
-                                                          counts[1] + 1)
+    assert (COUNTERS.launches, COUNTERS.observe_launches) == (counts[0] + 1,
+                                                            counts[1] + 1)
     obs, new = out[0], out[1]
     assert out[4].all() and (new.step_count == 0).all()
     assert torch.equal(obs["packed"], fused_observe_reference(env.params,
@@ -388,11 +389,11 @@ def test_frames_on_card_match_cpu(cuda_device, tile):
                                  device=cuda_device)]
         st = env.step(random_keys(g, (B, 2), cuda_device), st, a)[1]
     st_c = st.map(lambda x: x.cpu())
-    o0 = KERNEL.observe_launches
+    o0 = COUNTERS.observe_launches
     for kw in ({}, {"highlight": False}, {"agent_pov": True}):
         got = get_frame(env.params, st, tile_size=tile, **kw)
         assert _same(got, get_frame(env.params, st_c, tile_size=tile, **kw))
-    assert KERNEL.observe_launches - o0 == 2
+    assert COUNTERS.observe_launches - o0 == 2
 
 
 @pytest.mark.gpu
@@ -420,7 +421,7 @@ def test_wrapped_pooled_steps_on_card_match_cpu(cuda_device, stack):
     _, st = w.reset_staggered(g, B)
     st_c = st.map(lambda x: x.cpu())
     rows = presample_reset_states(g, w.make_pool(g, 64), T)
-    counts = KERNEL.launches, KERNEL.observe_launches
+    counts = COUNTERS.launches, COUNTERS.observe_launches
     penalties = 0
     for t in range(T):
         keys = random_keys(g, (B, 2), cuda_device)
@@ -436,8 +437,8 @@ def test_wrapped_pooled_steps_on_card_match_cpu(cuda_device, stack):
         st, st_c = out[1], ref[1]
         penalties += int((out[2] < 0).sum())
     observes = 0 if stack == "ImgObs" else T
-    assert (KERNEL.launches - counts[0],
-            KERNEL.observe_launches - counts[1]) == (T, observes)
+    assert (COUNTERS.launches - counts[0],
+            COUNTERS.observe_launches - counts[1]) == (T, observes)
     assert stack != "NoDeath" or penalties > 0
 
 
@@ -522,7 +523,7 @@ def test_babyai_post_step_kernel_matches_plain_on_card(
 
     monkeypatch.setattr(PS, "_babyai_post_step_cuda", checked)
     g = env.generator(8)
-    launches = PS.POST_STEP.verify_launches
+    launches = COUNTERS.verify_launches
     T = 64
     for t in range(2 * T):
         keys = random_keys(g, (B, 2), cuda_device)
@@ -534,7 +535,7 @@ def test_babyai_post_step_kernel_matches_plain_on_card(
         st = env.step_autoreset_presampled(keys, st, a.to(torch.int32),
                                            pool.rows(t % 16))[1]
     torch.cuda.synchronize()
-    assert PS.POST_STEP.verify_launches - launches == 2 * T
+    assert COUNTERS.verify_launches - launches == 2 * T
     assert ended[0] > 0 and ended[1] > 0, ended
 
 

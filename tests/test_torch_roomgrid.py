@@ -33,8 +33,8 @@ import minigrid_tpu_torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import roomgrid as RG
 from minigrid_tpu_torch.core.mission import detokenize
-from minigrid_tpu_torch.ops.fused_step import (has_step_hooks,
-                                               require_core_dynamics)
+from minigrid_tpu_torch.envs.base import has_step_hooks
+from minigrid_tpu_torch.ops.fused_step import require_core_dynamics
 
 from tests.torch_port_utils import (share_cpu,  # noqa: F401
                                     ALL_FIELDS, CPU, action_stream,

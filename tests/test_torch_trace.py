@@ -17,13 +17,12 @@ from torch.profiler import ProfilerActivity, profile
 import minigrid_tpu_torch as mt
 from minigrid_tpu_torch import wrappers as W
 from minigrid_tpu_torch.core import roomgrid
-from minigrid_tpu_torch.envs.babyai.core.post_step import POST_STEP
 from minigrid_tpu_torch.envs.base import random_keys
 from minigrid_tpu_torch.envs.wfc import solver
 from minigrid_tpu_torch.models import ppo as PPO
 from minigrid_tpu_torch.models.actor_critic import ActorCritic
 from minigrid_tpu_torch.models.policy_step import POLICY
-from minigrid_tpu_torch.ops.fused_step import KERNEL
+from minigrid_tpu_torch.ops import native
 from minigrid_tpu_torch.utils import trace
 from tests.torch_port_utils import share_cpu  # noqa: F401
 
@@ -199,9 +198,8 @@ def test_counters_are_the_counter_objects_fields():
              for f in dataclasses.fields(solver.COUNTERS)}
     want |= {f"policy.{k}": getattr(POLICY, k)
              for k in ("graph_captures", "graph_replays", "eager_steps")}
-    want |= {f"kernel.{k}": getattr(KERNEL, k)
+    want |= {f"kernel.{k}": getattr(native.COUNTERS, k)
              for k in ("launches", "observe_launches", "wide_launches",
-                       "wide_observe_launches")}
-    want["kernel.verify_launches"] = POST_STEP.verify_launches
+                       "wide_observe_launches", "verify_launches")}
     assert got == want
     assert got["gen.host_syncs"] > 0  # PutNextLocal's generator syncs

@@ -441,7 +441,7 @@ def test_wfc_states_step_like_jax():
                                                jenv.params.max_steps - 8))
     check_fused_step_against_jax(env_id, jenv, jst, "uniform", T=16, B=NB)
     p = minigrid_tpu_torch.make(env_id, device=CPU)
-    from minigrid_tpu_torch.ops.fused_step import has_step_hooks
+    from minigrid_tpu_torch.envs.base import has_step_hooks
     assert not has_step_hooks(p)
     assert export(jst).grid.shape == (NB, SIZE, SIZE, 5)
 

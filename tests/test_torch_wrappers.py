@@ -29,8 +29,8 @@ from minigrid_tpu.envs.base import presample_reset_states as j_presample
 
 from minigrid_tpu_torch import wrappers as PW
 from minigrid_tpu_torch.envs import base as B
-from minigrid_tpu_torch.ops.fused_step import (has_step_hooks,
-                                               require_core_dynamics)
+from minigrid_tpu_torch.envs.base import has_step_hooks
+from minigrid_tpu_torch.ops.fused_step import require_core_dynamics
 
 from tests.torch_port_utils import (share_cpu,  # noqa: F401
                                     action_stream, doorkey_features, export,
