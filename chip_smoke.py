@@ -26,6 +26,12 @@ Phases, each fatal on failure:
    modes, 32 steps of PutNextLocal and of BossLevel (22x22) at B=4096, its
    launches counted (``post_step_phase``); its device time, byte bound,
    host cost a call and plain time at the end of phase 5;
+2c. the fresh select kernel (``csrc/fresh_select.cu``) against its plain
+   version (``fresh_candidates`` then ``select_reset_states``) on the same
+   card inputs, bit for bit, 16 steps of DoorKey-8x8 and of BossLevel
+   (22x22, 28 tensors) at B=4096, its launches counted
+   (``select_phase``); its device time, byte bound, host cost a call and
+   plain time at the end of phase 5;
 3. the main path through the public entry points: DoorKey-8x8 with packed
    observations, a 1024-entry layout pool, 4096 staggered envs, the bf16
    ActorCritic and one 128-step pooled rollout, with the kernel's launch
@@ -981,6 +987,163 @@ def post_step_phase(card: str):
             "route": "cuda",
             "source": "minigrid_tpu_torch/csrc/babyai_post_step.cu",
             # the JAX package's verifier is jnp under jit: no Pallas kernel
+            "replaces": None,
+            "launches": sum(c["launches"] for c in shapes.values()),
+            "max_abs_err": 0.0,
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": None,
+            "host_us": first["wrapper_host_us"],
+            "shapes": shapes,
+        }
+
+    return times
+
+
+# --- phase 2c: the fresh select kernel ---------------------------------------
+# csrc/fresh_select.cu against its plain version on the same card inputs, bit
+# for bit, at B=4096 on DoorKey-8x8 (the benchmark's fresh DoorKey cell, 9
+# tensors) and BossLevel (28 tensors, 22x22), its launches counted; its device
+# time, byte bound, host cost a call and plain time measured at the end of
+# phase 5, as the post-step's are
+SELECT_ENVS = ("MiniGrid-DoorKey-8x8-v0", "BabyAI-BossLevel-v0")
+SELECT_T = 16  # steps a state is checked over
+
+
+def select_bytes(state, done) -> int:
+    """Bytes one launch of the select kernel has to move: the stepped
+    state read once and the selected state written once, and for each
+    finished env its buffer row (its rng from its step key); the done
+    flags."""
+    from minigrid_tpu_torch.ops import fresh_select as FS
+
+    row = sum(f.row_bytes for f in FS.field_table(state))
+    B = state.batch_size
+    return 2 * B * row + int(done.sum()) * row + B
+
+
+def select_case(env_id: str, B: int = BATCH, T: int = SELECT_T):
+    """``T`` steps of ``env_id`` at ``B`` (staggered below the episode
+    budget, so that envs finish every step): the transition by the hook
+    path, then the fresh select by the kernel and by its plain version on
+    the same inputs, every tensor, the overflow and the cursor equal, the
+    inputs unchanged, one launch a call; the batch goes on from the
+    kernel's state. Returns (the case's counts, a function that times the
+    kernel on the last step's inputs)."""
+    import torch
+
+    import minigrid_tpu_torch as mt
+    from minigrid_tpu_torch.envs import base as EB
+    from minigrid_tpu_torch.envs.base import random_keys
+    from minigrid_tpu_torch.ops import fresh_select as FS
+    from minigrid_tpu_torch.ops.native import COUNTERS
+
+    env = mt.make(env_id, device="cuda").packed()
+    g = env.generator(SEED + 19)
+    _, st = env.reset(g, B)
+    ms = (st.extra["max_steps"] if st.extra is not None
+          else env.params.max_steps)
+    st = st.replace(step_count=(ms - 1 - torch.arange(
+        B, device="cuda") % (2 * T)).clamp(min=0).to(torch.int32))
+    n_buf, window = B // 2 + 256, 2 * B // (2 * T)
+    buffer = env.presample_fresh(g, n_buf)
+    cursor = torch.zeros((), dtype=torch.int32, device="cuda")
+    finished = overflow = 0
+    zero_counts()
+    for t in range(T):
+        keys = random_keys(g, (B, 2), "cuda")
+        a = torch.randint(0, 7, (B,), generator=g, device="cuda",
+                          dtype=torch.int32)
+        new, _, _, term, trunc = EB.hooked_step(env, keys, st, a)
+        done = term | trunc
+        args = (keys, done, new, buffer, cursor, window, None,
+                EB._SALT_WORDS)
+        inputs = [keys, done, cursor, *new.tensors().values()]
+        before = [x.clone() for x in inputs]
+        got, got_overflow, got_cursor = FS.fresh_select_cuda(*args)
+        cand, want_overflow, want_cursor = EB.fresh_candidates(
+            keys, done, buffer, cursor, window)
+        want = EB.select_reset_states(done, new, cand)
+        where = f"{short(env_id)} select {t}"
+        assert_same(f"{where} state", got.tensors(), want.tensors())
+        assert_same(f"{where} reset_overflow", got_overflow, want_overflow)
+        assert_same(f"{where} cursor", got_cursor, want_cursor)
+        assert_same(f"{where} inputs", dict(enumerate(inputs)),
+                    dict(enumerate(before)))
+        finished += int(done.sum())
+        overflow += int(got_overflow)
+        st, cursor = got, got_cursor
+    torch.cuda.synchronize()
+    if COUNTERS.select_launches != T:
+        raise AssertionError(f"{env_id}: {COUNTERS.select_launches} select "
+                             f"launches over {T} calls")
+    if finished < B // 4:
+        raise AssertionError(f"{env_id}: {finished} envs finished in {T} "
+                             "steps: the case tests too little")
+    moved = select_bytes(new, done)
+
+    def plain():
+        cand, overflow, cursor = EB.fresh_candidates(*args[:2], *args[3:6])
+        return EB.select_reset_states(done, new, cand), overflow, cursor
+
+    def times() -> dict:
+        return {
+            "ms": device_ms(lambda: FS.fresh_select_cuda(*args), 200,
+                            kernel="fresh_select_kernel"),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": moved,
+            "plain_ms": cuda_ms(plain, 20),
+            "wrapper_host_us": host_us(lambda: FS.fresh_select_cuda(*args)),
+            "plain_host_us": host_us(plain, reps=20),
+        }
+
+    return {"B": B, "tensors": len(new.tensors()), "steps": T,
+            "launches": T, "finished": finished, "n_buf": n_buf,
+            "window": window, "cursor": int(cursor),
+            "reset_overflow": overflow}, times
+
+
+def select_phase(card: str):
+    """The select kernel's check on each env of :data:`SELECT_ENVS`,
+    printed; returns a function that times it on each and returns its
+    ``kernels`` entry."""
+    from minigrid_tpu_torch.ops import fresh_select as FS
+
+    t0 = time.perf_counter()
+    FS.LIBRARY.load()
+    print(f"select kernel built in {time.perf_counter() - t0:.2f} s")
+    for line in FS.LIBRARY.build_log.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print("  " + line.strip())
+    shapes, timers = {}, {}
+    for env_id in SELECT_ENVS:
+        case, timers[short(env_id)] = select_case(env_id)
+        shapes[short(env_id)] = case
+        print(f"select kernel, {short(env_id)} B={case['B']} "
+              f"({case['tensors']} tensors): {case['launches']} launches "
+              f"over {case['steps']} steps == plain bit for bit "
+              f"({case['finished']} finished, buffer {case['n_buf']} rows, "
+              f"window {case['window']}, cursor {case['cursor']}, overflow "
+              f"{case['reset_overflow']})")
+
+    def times() -> dict:
+        for name, case in shapes.items():
+            case.update(timers[name]())
+            print(f"select kernel, {name} B={case['B']}: "
+                  f"{1e3 * case['ms']:.2f} us a launch against a "
+                  f"{1e3 * case['bound_ms']:.2f} us byte bound, plain "
+                  f"{case['plain_ms']:.3f} ms; host "
+                  f"{case['wrapper_host_us']:.1f} us a wrapper call, "
+                  f"{case['plain_host_us']:.1f} us a plain call ({card})")
+        first = shapes[short(SELECT_ENVS[0])]
+        return {
+            "name": "fresh_select",
+            "route": "cuda",
+            "source": "minigrid_tpu_torch/csrc/fresh_select.cu",
+            # the JAX package's fresh select is jnp under jit: no Pallas
+            # kernel
             "replaces": None,
             "launches": sum(c["launches"] for c in shapes.values()),
             "max_abs_err": 0.0,
@@ -2135,6 +2298,9 @@ def main() -> int:
     # --- 2b. the BabyAI post-step kernel against its plain version ------
     post_step_times = post_step_phase(card)
 
+    # --- 2c. the fresh select kernel against its plain version ----------
+    select_times = select_phase(card)
+
     # --- 3. the main path -----------------------------------------------
     env = mt.make(ENV_ID, device="cuda").packed()
     g = env.generator(SEED)
@@ -2274,6 +2440,9 @@ def main() -> int:
             n_done += int((out[3] | out[4]).sum())
         if (COUNTERS.launches, COUNTERS.observe_launches) != (T, T):
             raise AssertionError(f"{mode}: expected {T} step and {T} observe "
+                                 "launches")
+        if COUNTERS.select_launches != (T if mode == "fresh" else 0):
+            raise AssertionError(f"{mode}: {COUNTERS.select_launches} select "
                                  "launches")
         if n_done < B:
             raise AssertionError(f"{mode}: only {n_done} resets")
@@ -2569,6 +2738,7 @@ def main() -> int:
         step_s = (time.perf_counter() - t0) / reps
         launches_t = COUNTERS.launches, COUNTERS.observe_launches
         verify_launches = COUNTERS.verify_launches
+        select_launches = COUNTERS.select_launches
         one_launch = (mode == "pooled" and wrap is None
                       and not has_step_hooks(tenv))
         visits = [int(v) for v in visits]
@@ -2585,6 +2755,10 @@ def main() -> int:
         if verify_launches != (reps * ROLLOUT_LEN if budget else 0):
             raise AssertionError(f"{short(env_id)} {mode} train steps: "
                                  f"{verify_launches} post-step launches")
+        # the fresh reset's routing and select: one kernel launch a step
+        if select_launches != (reps * ROLLOUT_LEN if mode == "fresh" else 0):
+            raise AssertionError(f"{short(env_id)} {mode} train steps: "
+                                 f"{select_launches} select launches")
         metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
         overflow = sum(m.get("reset_overflow", 0) for m in metrics)
         for m in metrics:
@@ -2646,6 +2820,7 @@ def main() -> int:
                 "launches_per_step": launches_t[0] // reps,
                 "observe_launches_per_step": launches_t[1] // reps,
                 "verify_launches_per_step": verify_launches // reps,
+                "select_launches_per_step": select_launches // reps,
                 "peak_gib": peak, "visits": visits,
                 "metrics": metrics[-1]}, profile_rollout
 
@@ -3212,6 +3387,7 @@ def main() -> int:
               f"{copies / ROLLOUT_LEN:.1f} copies per step ({card})")
     del profile_later
     post_step_kernel = post_step_times()
+    select_kernel = select_times()
 
     # --- 6. learning on the card ----------------------------------------
     def learn(env_id, updates, resets, packed, num_epochs=2, num_envs=128,
@@ -3554,6 +3730,10 @@ def main() -> int:
         k: t["verify_launches_per_step"] for k, t in train.items()
         if "verify_launches_per_step" in t}  # the recurrent step's has none
     kernels.append(post_step_kernel)
+    select_kernel["launches_per_train_step"] = {
+        k: t["select_launches_per_step"] for k, t in train.items()
+        if "select_launches_per_step" in t}
+    kernels.append(select_kernel)
     print(json.dumps({"train_step": {k: {kk: vv for kk, vv in t.items()
                                          if kk != "metrics"}
                                      for k, t in train.items()},

@@ -26,8 +26,9 @@ state into each finished env (regenerated layouts, per-env pool rows, the
 fresh buffer, and for a hook env the broadcast row too, since
 ``_post_step`` may end an episode after the kernel's done test) run in
 three stages: that step, the select in PyTorch (:func:`select_reset_states`,
-which takes the candidate states as an argument), and the kernel's observe
-entry on the selected states.
+which takes the candidate states as an argument; the fresh buffer's routing
+and select are one kernel launch on the card, ``ops/fresh_select.py``), and
+the kernel's observe entry on the selected states.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from minigrid_tpu_torch.core.mission import detokenize, tokenize
 from minigrid_tpu_torch.core.obs import packed_to_image
 from minigrid_tpu_torch.core.types import (MISSION_LEN, EnvParams, EnvState,
                                            resolve_device)
+from minigrid_tpu_torch.ops import fresh_select as FS
 from minigrid_tpu_torch.ops.fused_step import (fused_observe, fused_rollout,
                                                pack_rows,
                                                require_core_dynamics,
@@ -52,6 +54,7 @@ from minigrid_tpu_torch.utils import trace
 # The XOR salt that derives a reset episode's rng from its step key
 # (minigrid_tpu/envs/base.py:_apply_broadcast_reset), as int32 bit patterns.
 RESET_RNG_SALT = np.array([0x5DEECE66, 0xB5297A4D], np.uint32).view(np.int32)
+_SALT_WORDS = tuple(int(w) for w in RESET_RNG_SALT)  # the kernel's ints
 # the state fields an observation reads
 OBSERVED = ("grid", "agent_pos", "agent_dir", "carrying")
 
@@ -372,10 +375,22 @@ def fresh_candidates(keys, done, buffer: EnvState, cursor, window: int,
 def _fresh_select(env, keys, st: EnvState, done, buffer: EnvState, cursor,
                   window: int, finishers=None):
     """The routing/select/observe tail of :func:`autoreset_step_fresh`.
-    Returns ``(obs, state, info, new_cursor)``."""
-    cand, overflow, cursor = fresh_candidates(keys, done, buffer, cursor,
-                                              window, finishers)
-    st = select_reset_states(done, st, cand)
+    The routing and select of CUDA tensors are one kernel launch
+    (``ops/fresh_select.py``); of CPU tensors, their plain version,
+    :func:`fresh_candidates` then :func:`select_reset_states`. Returns
+    ``(obs, state, info, new_cursor)``."""
+    dev = st.device.type
+    if dev == "cuda":
+        with trace.span("env.select"):
+            st, overflow, cursor = FS.fresh_select_cuda(
+                keys, done, st, buffer, cursor, window, finishers,
+                _SALT_WORDS)
+    elif dev == "cpu":
+        cand, overflow, cursor = fresh_candidates(keys, done, buffer, cursor,
+                                                  window, finishers)
+        st = select_reset_states(done, st, cand)
+    else:
+        raise ValueError(f"the fresh select runs on cpu or cuda, got {dev}")
     return env._observe(st), st, {"reset_overflow": overflow}, cursor
 
 

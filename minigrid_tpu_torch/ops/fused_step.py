@@ -14,7 +14,8 @@ hooks in PyTorch around the step entry without a reset row. Its
 observe-only entry, :func:`fused_observe`, observes states as given: the
 resets that select a different state into each finished env (regenerated,
 per-env pool rows, the fresh buffer, a hook env's broadcast row) step
-without a reset row, select in PyTorch, then observe through it.
+without a reset row, select (in PyTorch; the fresh buffer's by its own
+kernel on the card, ``ops/fresh_select.py``), then observe through it.
 
 Routing is by the device of the tensors: CPU tensors take
 :func:`fused_rollout_reference` (the port's ``step_core`` + ``gen_obs``),

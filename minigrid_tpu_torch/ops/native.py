@@ -70,15 +70,16 @@ class KernelCounters:
     """Launches of the hand-written kernels: the fused step's step entry
     (``launches``) and observe entry (``observe_launches``), of those the
     launches at views wider than ``fused_step.NARROW_VIEW`` (the 64-bit-row
-    family: ``wide_launches``, ``wide_observe_launches``), and the BabyAI
-    post-step's (``verify_launches``); plain ints that only the launches
-    add to."""
+    family: ``wide_launches``, ``wide_observe_launches``), the BabyAI
+    post-step's (``verify_launches``) and the fresh reset's select
+    (``select_launches``); plain ints that only the launches add to."""
 
     launches: int = 0
     observe_launches: int = 0
     wide_launches: int = 0
     wide_observe_launches: int = 0
     verify_launches: int = 0
+    select_launches: int = 0
 
 
 COUNTERS = KernelCounters()
@@ -148,13 +149,20 @@ class Library:
         device pointers (None: a null pointer) and ``ints``; raise
         ``RuntimeError`` with the library's own error string when it
         returns nonzero."""
-        pointers, count = self.entries[entry]
-        if len(tensors) != pointers or len(ints) != count:
-            raise ValueError(f"{entry} takes {pointers} pointers and {count} "
-                             f"ints, got {len(tensors)} and {len(ints)}")
+        self.launch(entry, [0 if t is None else t.data_ptr()
+                            for t in tensors], ints, stream)
+
+    def launch(self, entry: str, pointers: list, ints, stream: int) -> None:
+        """:meth:`call` with the table given as device pointers (ints, 0
+        for null): a caller that keeps its outputs' pointers passes them
+        without a ``data_ptr`` a call."""
+        count, int_count = self.entries[entry]
+        if len(pointers) != count or len(ints) != int_count:
+            raise ValueError(f"{entry} takes {count} pointers and "
+                             f"{int_count} ints, got {len(pointers)} and "
+                             f"{len(ints)}")
         lib = self.load()
-        table = array.array("q", [0 if t is None else t.data_ptr()
-                                  for t in tensors])
+        table = array.array("q", pointers)
         code = getattr(lib, entry)(table.buffer_info()[0], *ints, stream)
         if code != 0:
             error = getattr(lib, f"{self.source.stem}_error_string")

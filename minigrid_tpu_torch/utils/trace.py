@@ -32,8 +32,9 @@ The spans, by name (``mg.`` prefixed in the profiler):
   (``envs/base.py::hooked_step``): the action transforms, ``_pre_step``,
   ``_post_step`` (BabyAI's verifier) and the transition wrappers' outcome
   maps;
-- ``env.select``: the reset select in PyTorch: the broadcast row's episode
-  fields, the fresh routing, ``select_reset_states``, ``select_obs``;
+- ``env.select``: the reset select: the broadcast row's episode fields,
+  the fresh routing and select (on the card one kernel launch,
+  ``ops/fresh_select.py``), ``select_reset_states``, ``select_obs``;
 - ``gen``: a ``_gen_grid`` batch: a reset, a pool, a fresh buffer, a regen
   draw;
 - ``update``: the PPO update (``models/ppo.py::ppo_update``);

@@ -42,7 +42,7 @@ program's spans, so a copy of this file splits an older checkout's step.
 With ``--cell NAME`` it splits the train step of the benchmark's cell
 ``NAME`` instead (``port_bench/``'s driver builds it from ``--seed``, its
 checked steps are the warm-up), and adds the moves of the program's
-``policy.*`` counters where it has them.
+``policy.*`` and ``kernel.*`` counters where it has them.
 """
 
 from __future__ import annotations
@@ -405,7 +405,8 @@ def cell_span_split(card: str, cell: str, steps: int, seed: int) -> dict:
                                 for k, v in summary.items()},
             "counters_a_step": {k: (after[k] - before.get(k, 0)) / steps
                                 for k in after
-                                if k.startswith(("policy.", "gen.levels"))}}
+                                if k.startswith(("policy.", "gen.levels",
+                                                 "kernel."))}}
 
 
 def main() -> int:

@@ -1,6 +1,7 @@
 """The CUDA fused step kernel and its observe entry against their plain
 PyTorch versions on the card, bit-exact on every output, the BabyAI
-post-step kernel against its plain version, the recurrent policy's forward
+post-step kernel and the fresh select kernel against their plain versions,
+the recurrent policy's forward
 card against CPU, the WFC solver card against CPU, and the rollout's policy
 step as a CUDA graph replay against its eager run.
 Marked ``gpu``: they skip without a CUDA device. The file imports no JAX,
@@ -19,6 +20,7 @@ import torch
 import minigrid_tpu_torch
 from minigrid_tpu_torch.envs.babyai.core import level as L
 from minigrid_tpu_torch.envs.babyai.core import post_step as PS
+from minigrid_tpu_torch.envs import base as EB
 from minigrid_tpu_torch.envs.base import random_keys
 from minigrid_tpu_torch.models import ppo as P
 from minigrid_tpu_torch.models.actor_critic import (ActorCritic,
@@ -35,7 +37,9 @@ from minigrid_tpu_torch.ops.fused_step import (GROUP_LANES,
                                                fused_rollout,
                                                fused_rollout_reference,
                                                launch_geometry, sm_count)
+from minigrid_tpu_torch.ops import fresh_select as FS
 from minigrid_tpu_torch.ops.native import COUNTERS
+from minigrid_tpu_torch.utils import trace
 
 # interaction-biased action stream of tests/test_fused_step.py
 INTERACT = np.array([0, 1, 2, 2, 3, 4, 5, 5], np.int32)
@@ -339,6 +343,7 @@ def test_reset_modes_step_then_observe_on_card(cuda_device, mode):
     keys = random_keys(g, (B, 2), cuda_device)
     a = torch.zeros((B,), dtype=torch.int32, device=cuda_device)
     counts = COUNTERS.launches, COUNTERS.observe_launches
+    selects = COUNTERS.select_launches
     if mode == "regen":
         out = env.step_autoreset(keys, st, a, g)
     elif mode == "independent":
@@ -351,6 +356,7 @@ def test_reset_modes_step_then_observe_on_card(cuda_device, mode):
     torch.cuda.synchronize()
     assert (COUNTERS.launches, COUNTERS.observe_launches) == (counts[0] + 1,
                                                             counts[1] + 1)
+    assert COUNTERS.select_launches == selects + (mode == "fresh")
     obs, new = out[0], out[1]
     assert out[4].all() and (new.step_count == 0).all()
     assert torch.equal(obs["packed"], fused_observe_reference(env.params,
@@ -537,6 +543,75 @@ def test_babyai_post_step_kernel_matches_plain_on_card(
     torch.cuda.synchronize()
     assert COUNTERS.verify_launches - launches == 2 * T
     assert ended[0] > 0 and ended[1] > 0, ended
+
+
+# the fresh select's states: DoorKey-8x8's 9 tensors, a BabyAI level's 28
+# (masks (8, H) at H=8 and 22); B=1000 leaves the outputs of every other
+# call off a 16-byte boundary (the kernel's byte path)
+SELECT_CASES = [("MiniGrid-DoorKey-8x8-v0", 64), ("MiniGrid-DoorKey-8x8-v0",
+                                                  4096),
+                ("MiniGrid-DoorKey-8x8-v0", 1000),
+                ("BabyAI-PutNextLocal-v0", 64), ("BabyAI-PutNextLocal-v0",
+                                                 4096),
+                ("BabyAI-BossLevel-v0", 64), ("BabyAI-BossLevel-v0", 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id,B", SELECT_CASES)
+def test_fresh_select_kernel_matches_plain_on_card(cuda_device, env_id, B):
+    """The fresh select kernel against its plain version
+    (``fresh_candidates`` then ``select_reset_states``) on the same CUDA
+    inputs, bit for bit: every tensor of the state, ``reset_overflow`` and
+    the cursor. Windows 1, 32 and n_buf; cursors 0, past n_buf - window and
+    past n_buf; no env done, every env, a random third; a whole batch and a
+    stub ``finishers`` with fixed device offset and total. The inputs are
+    left as they were, and ``kernel.select_launches`` counts one a call;
+    the fresh step's routing takes the kernel."""
+    env = minigrid_tpu_torch.make(env_id, device=cuda_device).packed()
+    g = env.generator(11)
+    _, st = env.reset(g, B)
+    st = st.replace(step_count=torch.randint(0, 64, (B,), generator=g,
+                                             device=cuda_device,
+                                             dtype=torch.int32))
+    n_buf = 2 * B if B < 1000 else 600
+    buffer = env.presample_fresh(g, n_buf)
+    keys = random_keys(g, (B, 2), cuda_device)
+    i32 = torch.int32
+    stub = (torch.tensor(7, dtype=i32, device=cuda_device),
+            torch.tensor(B + 20, dtype=i32, device=cuda_device))
+    inputs = [keys, *st.tensors().values(), *buffer.tensors().values()]
+    before = [t.clone() for t in inputs]
+    calls, launches = 0, trace.counters()["kernel.select_launches"]
+    for window in (1, 32, n_buf):
+        for cursor in (0, n_buf - window + 5, n_buf + 3):
+            cursor = torch.tensor(cursor, dtype=i32, device=cuda_device)
+            for done in (torch.zeros(B, dtype=torch.bool, device=cuda_device),
+                         torch.ones(B, dtype=torch.bool, device=cuda_device),
+                         torch.rand(B, generator=g, device=cuda_device) < 1 / 3):
+                for finishers in (None, lambda count: stub):
+                    got = FS.fresh_select_cuda(keys, done, st, buffer, cursor,
+                                               window, finishers,
+                                               EB._SALT_WORDS)
+                    calls += 1
+                    cand, overflow, new_cursor = EB.fresh_candidates(
+                        keys, done, buffer, cursor, window, finishers)
+                    want = EB.select_reset_states(done, st, cand)
+                    where = (window, int(cursor), int(done.sum()),
+                             finishers is not None)
+                    assert _same(got[0], want), where
+                    assert got[1].dtype == got[2].dtype == i32
+                    assert (int(got[1]), int(got[2])) == (
+                        int(overflow), int(new_cursor)), where
+    torch.cuda.synchronize()
+    assert trace.counters()["kernel.select_launches"] - launches == calls
+    for t, c in zip(inputs, before):
+        assert torch.equal(t, c)
+    done = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    obs, new, info, cursor = EB._fresh_select(
+        env, keys, st, done, buffer, torch.zeros((), dtype=i32,
+                                                 device=cuda_device), 32)
+    assert COUNTERS.select_launches - launches == calls + 1
+    assert int(cursor) == B and int(info["reset_overflow"]) == B - 32
 
 
 # (env id, reset mode) of the graphed rollout's cases: the benchmark's

@@ -1,6 +1,6 @@
 """The port's one route to its hand-written kernels
 (minigrid_tpu_torch/ops/native.py), on the CPU: the input check names the
-tensor at fault for every fault and every input of both kernels, and each
+tensor at fault for every fault and every input of the kernels, and each
 C entry's pointer table, as the ``.cu`` declares it, is the table its
 wrapper passes. The kernels themselves run only on the card
 (tests/test_torch_kernel_gpu.py)."""
@@ -13,7 +13,9 @@ import pytest
 import torch
 
 import minigrid_tpu_torch
+from minigrid_tpu_torch.envs import base
 from minigrid_tpu_torch.envs.babyai.core import post_step as PS
+from minigrid_tpu_torch.ops import fresh_select as FS
 from minigrid_tpu_torch.ops import fused_step as F
 from minigrid_tpu_torch.ops import native
 
@@ -46,8 +48,20 @@ def level():
     return env.params, (st, new, a, reward[0], term[0])
 
 
+def _select_inputs(st) -> list:
+    """The fresh select's inputs (keys, done, cursor, offset, total, then
+    the state's tensors) for a state that is its own buffer."""
+    i32 = torch.int32
+    return [torch.zeros((B, 2), dtype=i32), torch.ones(B, dtype=torch.bool),
+            torch.zeros((), dtype=i32), torch.zeros((), dtype=i32),
+            torch.full((), B, dtype=i32), *st.tensors().values()]
+
+
 def _inputs(kernel, doorkey, level):
     """(tensors, specs) of ``kernel``'s inputs, in its table's order."""
+    if kernel == "fresh_select":
+        st = doorkey[1]
+        return _select_inputs(st), FS.PackedBuffer(st).layout.specs(B)
     if kernel == "babyai_post_step":
         params, args = level
         return (PS._inputs(*args),
@@ -62,7 +76,8 @@ def _inputs(kernel, doorkey, level):
 FAULTS = {
     "device": (lambda t: t.to("meta"), "must be on cpu"),
     "dtype": (lambda t: t.to(torch.int64), "must be torch"),
-    "shape": (lambda t: torch.cat([t, t]), "must be torch"),
+    "shape": (lambda t: torch.cat([t, t]) if t.ndim else t.reshape(1),
+              "must be torch"),
     "contiguity": (lambda t: torch.stack([t, t], -1)[..., 0],
                    "must be contiguous"),
 }
@@ -70,7 +85,7 @@ FAULTS = {
 
 @pytest.mark.parametrize("fault", list(FAULTS))
 @pytest.mark.parametrize("kernel", ["fused_step", "fused_observe",
-                                    "babyai_post_step"])
+                                    "babyai_post_step", "fresh_select"])
 def test_check_names_the_tensor_at_fault(kernel, fault, doorkey, level):
     """``native.check`` passes a kernel's inputs as its wrapper gathers
     them (a null reset row too) and, for each input in turn given on
@@ -82,6 +97,8 @@ def test_check_names_the_tensor_at_fault(kernel, fault, doorkey, level):
         native.check(tensors[:6] + [None, None], specs)
     make, says = FAULTS[fault]
     for i in range(fault == "device", len(tensors)):
+        if fault == "contiguity" and tensors[i].ndim == 0:
+            continue  # a scalar is contiguous whatever its view
         bad = list(tensors)
         bad[i] = make(tensors[i])
         with pytest.raises(ValueError, match=re.escape(specs[i][0])
@@ -103,6 +120,9 @@ EMPTY_LAUNCHES = {
     "babyai_post_step B=0": lambda p, st, a, lv: PS._babyai_post_step_cuda(
         lv[0], *(x.map(_empty) for x in lv[1][:2]),
         *map(_empty, lv[1][2:]), False),
+    "fresh_select B=0": lambda p, st, a, lv: FS.fresh_select_cuda(
+        *map(_empty, _select_inputs(st)[:2]), st.map(_empty), st,
+        *_select_inputs(st)[2:3], 4, None, base._SALT_WORDS),
 }
 
 
@@ -139,6 +159,9 @@ class _Recorder:
 
     def call(self, entry, tensors, ints, stream):
         self.calls.append((entry, list(tensors), tuple(ints), stream))
+
+    def launch(self, entry, pointers, ints, stream):
+        self.calls.append((entry, list(pointers), tuple(ints), stream))
 
 
 @pytest.mark.parametrize("entry", ["fused_step_launch",
@@ -177,4 +200,39 @@ def test_pointer_tables_match_the_sources(entry, doorkey, level,
                                                            ints, 7)
     assert all(t is u for t, u in zip(table, inputs))
     assert all(t is not None for t in table[len(inputs):])
+    assert sum(vars(native.COUNTERS).values()) == 1
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_select_pointer_table_matches_the_source(sharded, doorkey,
+                                                 monkeypatch):
+    """The fresh select's C entry takes the pointer and int counts its
+    ``.cu`` declares, and its wrapper passes that many on the CPU (a
+    stand-in library and stream): the packed buffer, the inputs in
+    ``native.check``'s order (null offset and total for a whole batch),
+    overflow and cursor, the state's fields, then the outputs, which are
+    the tensors it returns, each group padded with nulls to
+    ``MAX_FIELDS``."""
+    entry = "fresh_select_launch"
+    monkeypatch.setattr(FS, "LIBRARY", _Recorder(FS.LIBRARY))
+    monkeypatch.setattr(native, "stream", lambda device: 7)
+    monkeypatch.setattr(native, "COUNTERS", native.KernelCounters())
+    assert _declared(FS.SOURCE, entry) == FS.LIBRARY.entries[entry]
+    st = doorkey[1]
+    inputs = _select_inputs(st)
+    finishers = (lambda count: tuple(inputs[3:5])) if sharded else None
+    new, overflow, cursor = FS.fresh_select_cuda(
+        *inputs[:2], st, st, inputs[2], 4, finishers, base._SALT_WORDS)
+    [(called, table, ints, stream)] = FS.LIBRARY.calls
+    n, pad = len(inputs) - 5, [0] * (FS.MAX_FIELDS - len(inputs) + 5)
+    assert (called, len(table), stream) == (entry, 8 + 2 * FS.MAX_FIELDS, 7)
+    assert ints == (B, B, 4, n, FS.RNG, *base._SALT_WORDS)
+    ptr = [0 if t is None or (not sharded and i in (3, 4)) else t.data_ptr()
+           for i, t in enumerate(inputs)]
+    assert table[0] == FS._Packed.packed.ptr
+    assert table[1:6] == ptr[:5]
+    assert table[6:8] == [overflow.data_ptr(), cursor.data_ptr()]
+    assert table[8:8 + FS.MAX_FIELDS] == ptr[5:] + pad
+    assert table[8 + FS.MAX_FIELDS:] == [
+        t.data_ptr() for t in new.tensors().values()] + pad
     assert sum(vars(native.COUNTERS).values()) == 1

@@ -200,6 +200,7 @@ def test_counters_are_the_counter_objects_fields():
              for k in ("graph_captures", "graph_replays", "eager_steps")}
     want |= {f"kernel.{k}": getattr(native.COUNTERS, k)
              for k in ("launches", "observe_launches", "wide_launches",
-                       "wide_observe_launches", "verify_launches")}
+                       "wide_observe_launches", "verify_launches",
+                       "select_launches")}
     assert got == want
     assert got["gen.host_syncs"] > 0  # PutNextLocal's generator syncs
